@@ -1,0 +1,284 @@
+"""Batched lockstep codec engines — port of lyra_tpu/codec/engine.py.
+
+One `step()` advances B streams by one 20 ms hop.  EncoderEngine: (DTX
+noise gate) → SoundStream features → RVQ stage indices.  DecoderEngine:
+RVQ decode → feature estimator → LyraGAN, the 6-state PLC machine, the
+decoder-side noise estimator, comfort noise and the cos² crossfade.  Every
+per-stream scalar is a `[B]` tensor and every branch a `torch.where` mask,
+so streams in different PLC states batch together.
+
+State is an explicit dict tree with the JAX engine's keys and shapes
+(utils/state.py converts between the two).  Steps are pure: they return a
+new tree and leave the input tree untouched.
+
+`backend="kernel"` (the default) runs the conv stacks through the
+conv-stack kernels and the RVQ search through its kernel; on CPU tensors
+those wrappers run their plain versions.  `backend="plain"` runs the
+executor lowering and the `"fast"` RVQ search — the plain reference on
+either device.
+
+Differences from the JAX engines: only 16 kHz and float mode are ported
+(the resampler, bf16, int8 state storage and fp8 boundaries are later
+work, so there is no `mode` argument); comfort noise is always
+synthesized (the JAX engine skips it with a `lax.cond` when no stream needs
+it — the masked result is bit-identical, and testing `any()` on the host
+would cost a device sync every tick).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import torch
+
+from lyra_tpu import config
+from lyra_tpu_torch.codec.comfort_noise import ComfortNoiseGenerator
+from lyra_tpu_torch.codec.feature_estimator import (
+    DecayingFeatureEstimator,
+    LastFrameFeatureEstimator,
+    ZeroFeatureEstimator,
+)
+from lyra_tpu_torch.codec.noise_estimator import NoiseEstimator
+from lyra_tpu_torch.dsp import utils as dsp_utils
+from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
+from lyra_tpu_torch.models.streaming import (
+    BACKENDS,
+    LyraGanModel,
+    SoundStreamEncoder,
+    mask_tree,
+)
+
+State = Dict[str, Any]
+
+# PLC timing (reference: lyra/lyra_decoder.cc:42-61): 0.08 s of pure
+# concealment, then a 0.04 s cos² fade into comfort noise.
+INTERNAL_HOP = config.num_samples_per_hop(config.INTERNAL_SAMPLE_RATE)
+CONCEALMENT_SAMPLES = int(0.08 * config.INTERNAL_SAMPLE_RATE)
+FADE_SAMPLES = int(0.04 * config.INTERNAL_SAMPLE_RATE)
+FADE_TO_CNG = 1
+FADE_FROM_CNG = -1
+
+_ESTIMATORS = {
+    "zero": ZeroFeatureEstimator,
+    "last_frame": LastFrameFeatureEstimator,
+    "decaying": DecayingFeatureEstimator,
+}
+
+
+def has_model_assets(model_path: str) -> bool:
+    """True when `model_path` holds every model file the engines load."""
+    return all(os.path.exists(os.path.join(model_path, a))
+               for a in config.ASSETS)
+
+
+def _checked_common(sample_rate_hz: int, model_path: str,
+                    backend: str) -> None:
+    config.check_params_supported(sample_rate_hz, config.NUM_CHANNELS,
+                                  model_path)
+    if sample_rate_hz != config.INTERNAL_SAMPLE_RATE:
+        raise NotImplementedError(
+            f"sample rate {sample_rate_hz}: the port runs 16 kHz only "
+            f"(the resampler is not ported yet)")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _max_stages(rvq: ResidualVectorQuantizer, max_bitrate):
+    if max_bitrate is None:
+        return None
+    bits = config.bitrate_to_num_quantized_bits(max_bitrate)
+    if bits < 0:
+        raise ValueError(f"bitrate {max_bitrate} is not supported "
+                         f"(choose from {config.SUPPORTED_BITRATES})")
+    return rvq.num_bits_to_stages(bits)
+
+
+def fade_weights(fade_progress: torch.Tensor, fade_direction: torch.Tensor,
+                 num_samples: int) -> torch.Tensor:
+    """Per-sample cos² crossfade weights [B, num_samples]:
+    (1 + cos((fade + dir·i)·π / FADE_SAMPLES)) / 2."""
+    i = torch.arange(num_samples, dtype=torch.float32,
+                     device=fade_progress.device)[None, :]
+    p = (fade_progress.float()[:, None]
+         + fade_direction.float()[:, None] * i)
+    return (1.0 + torch.cos(p * torch.pi / FADE_SAMPLES)) / 2.0
+
+
+class DecoderEngine:
+    """Batched hop-lockstep Lyra decoder over `[B]` concurrent streams."""
+
+    def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
+                 model_path: str = config.DEFAULT_MODEL_PATH,
+                 backend: str = "kernel",
+                 feature_estimator: str = "zero",
+                 max_bitrate: int | None = None,
+                 emit_dtype: str = "float32", device="cpu"):
+        _checked_common(sample_rate_hz, model_path, backend)
+        if emit_dtype not in ("float32", "int16"):
+            raise ValueError(
+                f"emit_dtype must be 'float32' or 'int16', got {emit_dtype!r}")
+        if feature_estimator not in _ESTIMATORS:
+            raise ValueError(
+                f"unknown feature_estimator {feature_estimator!r}; "
+                f"choose from {sorted(_ESTIMATORS)}")
+        self.device = torch.device(device)
+        self.sample_rate_hz = sample_rate_hz
+        self.hop_samples = INTERNAL_HOP
+        self._emit_int16 = emit_dtype == "int16"
+        self.gan = LyraGanModel(model_path, backend=backend, device=device)
+        self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
+        self._max_stages = _max_stages(self.rvq, max_bitrate)
+        self.cng = ComfortNoiseGenerator(config.INTERNAL_SAMPLE_RATE,
+                                         device=device)
+        self.noise = NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
+        self.estimator = _ESTIMATORS[feature_estimator](device=device)
+
+    def init_state(self, batch_size: int, seed: int = 0) -> State:
+        b, dev = batch_size, self.device
+        return {
+            "gan": self.gan.init_state(b),
+            "cng": self.cng.init_state(b, seed=seed),
+            "noise": self.noise.init_state(b),
+            "est": self.estimator.init_state(b),
+            "concealment": torch.zeros((b,), dtype=torch.int32, device=dev),
+            "fade": torch.zeros((b,), dtype=torch.int32, device=dev),
+            "fade_dir": torch.full((b,), FADE_FROM_CNG, dtype=torch.int32,
+                                   device=dev),
+        }
+
+    def reset_rows(self, state: State, mask: torch.Tensor,
+                   seed: int = 0) -> State:
+        """Re-initialize streams where `mask` is set (stream admission);
+        `seed` must match init_state's to keep the per-stream RNG lineage."""
+        mask = mask.to(device=self.device, dtype=torch.bool)
+        return mask_tree(mask, self.init_state(mask.shape[0], seed=seed), state)
+
+    def step(self, state: State, indices: torch.Tensor,
+             received: torch.Tensor):
+        """Advance every stream by one 20 ms hop.
+
+        indices:  [B, num_stages] int RVQ stage indices (−1 beyond the
+                  stream's bitrate; ignored where not received).
+        received: [B] bool — False means lost (or a DTX empty packet).
+
+        Returns (audio [B, 320] at int16 scale — float32, or int16 with
+        emit_dtype="int16"; is_comfort_noise [B] bool; new_state).
+        """
+        received = received.to(device=self.device, dtype=torch.bool)
+        lossy = self.rvq.decode(indices.to(self.device),
+                                max_stages=self._max_stages)
+        est_state = self.estimator.update(state["est"], lossy, received)
+
+        # PLC state update (reference: lyra/lyra_decoder.cc:249-265).
+        conceal_sat = state["concealment"] >= CONCEALMENT_SAMPLES
+        fade_dir = torch.where(
+            received, FADE_FROM_CNG,
+            torch.where(conceal_sat, FADE_TO_CNG, state["fade_dir"])
+        ).to(torch.int32)
+        concealment = torch.where(
+            received, 0,
+            torch.where(conceal_sat, state["concealment"],
+                        state["concealment"] + INTERNAL_HOP)
+        ).to(torch.int32)
+
+        # Saturation gates (reference: lyra/lyra_decoder.cc:267-282).
+        run_model = ~((fade_dir == FADE_TO_CNG) & (state["fade"] == FADE_SAMPLES))
+        run_cng = ~((fade_dir == FADE_FROM_CNG) & (state["fade"] == 0))
+
+        feats = torch.where(received[:, None], lossy,
+                            self.estimator.estimate(est_state))
+        model_unit, gan_state = self.gan.decode_hop(state["gan"], feats)
+        gan_state = mask_tree(run_model, gan_state, state["gan"])
+        model_hop = dsp_utils.unit_to_int16(model_unit).float()
+
+        cng_hop, cng_state = self.cng.generate_hop(
+            state["cng"], self.noise.noise_estimate(state["noise"]))
+        cng_hop = dsp_utils.clip_to_int16(cng_hop).float()
+        cng_state = mask_tree(run_cng, cng_state, state["cng"])
+
+        # cos² crossfade (reference: lyra/lyra_decoder.cc:342-373).
+        w = fade_weights(state["fade"], fade_dir, INTERNAL_HOP)
+        blended = w * model_hop + (1.0 - w) * cng_hop
+        both = run_model & run_cng
+        audio = torch.where(both[:, None], blended,
+                            torch.where(run_model[:, None], model_hop, cng_hop))
+        audio = dsp_utils.clip_to_int16(audio).float()
+
+        fade = torch.clamp(state["fade"] + fade_dir * INTERNAL_HOP, 0,
+                           FADE_SAMPLES).to(torch.int32)
+
+        # The noise estimator listens to received hops' model output only.
+        noise_state = self.noise.receive_hop(state["noise"], model_hop)
+        noise_state = mask_tree(received, noise_state, state["noise"])
+
+        new_state = {
+            "gan": gan_state,
+            "cng": cng_state,
+            "noise": noise_state,
+            "est": est_state,
+            "concealment": concealment,
+            "fade": fade,
+            "fade_dir": fade_dir,
+        }
+        is_comfort_noise = fade == FADE_SAMPLES
+        if self._emit_int16:
+            audio = audio.to(torch.int16)
+        return audio, is_comfort_noise, new_state
+
+
+class EncoderEngine:
+    """Batched hop-lockstep Lyra encoder over `[B]` concurrent streams."""
+
+    def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
+                 model_path: str = config.DEFAULT_MODEL_PATH,
+                 enable_dtx: bool = False, backend: str = "kernel",
+                 max_bitrate: int | None = None,
+                 device="cpu"):
+        _checked_common(sample_rate_hz, model_path, backend)
+        self.device = torch.device(device)
+        self.sample_rate_hz = sample_rate_hz
+        self.hop_samples = INTERNAL_HOP
+        self.enable_dtx = enable_dtx
+        self.soundstream = SoundStreamEncoder(model_path, backend=backend,
+                                              device=device)
+        self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
+        self._rvq_method = "kernel" if backend == "kernel" else "fast"
+        self._max_stages = _max_stages(self.rvq, max_bitrate)
+        self.noise = (NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
+                      if enable_dtx else None)
+
+    def init_state(self, batch_size: int) -> State:
+        state = {"soundstream": self.soundstream.init_state(batch_size)}
+        if self.noise is not None:
+            state["noise"] = self.noise.init_state(batch_size)
+        return state
+
+    def reset_rows(self, state: State, mask: torch.Tensor) -> State:
+        mask = mask.to(device=self.device, dtype=torch.bool)
+        return mask_tree(mask, self.init_state(mask.shape[0]), state)
+
+    def step(self, state: State, audio: torch.Tensor, num_quantizers):
+        """audio [B, 320] at int16 scale; num_quantizers scalar or [B].
+
+        Returns (indices [B, num_stages] int32, −1 beyond each stream's
+        bitrate; is_noise [B] bool; new_state).  A DTX noise hop leaves the
+        stream's SoundStream state untouched (the host sends an empty
+        packet)."""
+        new_state = dict(state)
+        x = audio.to(device=self.device, dtype=torch.float32)
+        if self.noise is not None:
+            noise_state = self.noise.receive_hop(state["noise"], x)
+            is_noise = self.noise.is_noise(noise_state)
+            new_state["noise"] = noise_state
+        else:
+            is_noise = torch.zeros((x.shape[0],), dtype=torch.bool,
+                                   device=self.device)
+        feats, ss_state = self.soundstream.extract(
+            state["soundstream"], dsp_utils.int16_to_unit(x))
+        new_state["soundstream"] = mask_tree(~is_noise, ss_state,
+                                             state["soundstream"])
+        indices = self.rvq.quantize(feats, num_quantizers,
+                                    method=self._rvq_method,
+                                    max_stages=self._max_stages)
+        return indices, is_noise, new_state

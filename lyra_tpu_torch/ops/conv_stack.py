@@ -1,0 +1,161 @@
+"""Conv-stack kernel K1: wrappers for the three conv kinds of the core.
+
+Replaces the conv lowerings of the Pallas megakernel
+`lyra_tpu/ops/fused_stack.py::FusedStackKernel` (`_conv`, `_depthwise`,
+`_tconv`, launched by the `pl.pallas_call` at fused_stack.py:488).  The
+CUDA sources are ops/csrc/conv_stack.cu; see there for what bounds them on
+the card.
+
+All three take channels-last activations `[B, T, C]` float32 (the graph's
+`[1, T, 1, C]` with the stream batch in place of 1 and W dropped) and
+weights pre-laid out for the kernels:
+
+    conv1d(x, w[K, I_f, O], bias[O], stride)        CONV_2D, grouped
+    depthwise_conv1d(x, w[K, C], bias[C], dilation)  DEPTHWISE_CONV_2D
+    transpose_conv1d(x, w[K, I, O], bias[O], stride, t_out)  TRANSPOSE_CONV
+
+A CUDA tensor launches the kernel (and counts the launch); a CPU tensor
+runs the plain version, which is the executor's torch lowering
+(tflite/executor.py).  Anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from lyra_tpu_torch.ops import cuda_build
+from lyra_tpu_torch.tflite import executor
+
+_SOURCE = "lyra_tpu_torch/ops/csrc/conv_stack.cu"
+_REPLACES = "lyra_tpu/ops/fused_stack.py:488"
+
+CONV1D = cuda_build.KernelCounter("conv1d_fwd", _SOURCE, _REPLACES)
+DEPTHWISE = cuda_build.KernelCounter("depthwise_conv1d_fwd", _SOURCE, _REPLACES)
+TCONV = cuda_build.KernelCounter("transpose_conv1d_fwd", _SOURCE, _REPLACES)
+KERNELS = (CONV1D, DEPTHWISE, TCONV)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("conv_stack.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lyra_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.lyra_depthwise_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    lib.lyra_transpose_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    for fn in (lib.lyra_conv1d_fwd, lib.lyra_depthwise_conv1d_fwd,
+               lib.lyra_transpose_conv1d_fwd):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_cuda(x: torch.Tensor, *operands: Optional[torch.Tensor]) -> bool:
+    """True → launch the kernel; False → plain version (CPU tensors)."""
+    if x.device.type == "cpu":
+        return False
+    if not x.is_cuda:
+        raise NotImplementedError(f"no conv-stack kernel for {x.device}")
+    for t in (x, *operands):
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(
+                f"conv-stack kernels take float32 on {x.device}, got "
+                f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("conv-stack kernels take contiguous tensors")
+    return True
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+# -- plain versions (the executor's lowering, on [B, T, 1, C]) ---------------
+
+def conv1d_plain(x, w, bias, stride: int) -> torch.Tensor:
+    groups = x.shape[-1] // w.shape[1]
+    w_t = w.permute(2, 1, 0).unsqueeze(-1)  # [O, I_f, K, 1]
+    return executor.conv2d(x.unsqueeze(2), w_t, bias, (stride, 1), (1, 1),
+                           groups).squeeze(2)
+
+
+def depthwise_conv1d_plain(x, w, bias, dilation: int) -> torch.Tensor:
+    w_t = w.t().unsqueeze(1).unsqueeze(-1)  # [C, 1, K, 1]
+    return executor.depthwise_conv2d(x.unsqueeze(2), w_t, bias, (1, 1),
+                                     (dilation, 1)).squeeze(2)
+
+
+def transpose_conv1d_plain(x, w, bias, stride: int, t_out: int) -> torch.Tensor:
+    w_t = w.permute(1, 2, 0).unsqueeze(-1)  # [I, O, K, 1]
+    return executor.transpose_conv(x.unsqueeze(2), w_t, bias, (stride, 1),
+                                   (t_out, 1)).squeeze(2)
+
+
+# -- wrappers -------------------------------------------------------------------
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+           stride: int) -> torch.Tensor:
+    """CONV_2D over time: x [B, T_in, C_in], w [K, I_f, O] → [B, T_out, O]
+    with groups = C_in / I_f and T_out = (T_in − K) // stride + 1."""
+    if not _on_cuda(x, w, bias):
+        return conv1d_plain(x, w, bias, stride)
+    b, t_in, c_in = x.shape
+    k, i_f, o = w.shape
+    groups = c_in // i_f
+    if c_in % i_f or o % groups or t_in < k:
+        raise ValueError(f"conv1d shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    t_out = (t_in - k) // stride + 1
+    out = torch.empty((b, t_out, o), device=x.device, dtype=torch.float32)
+    err = _lib().lyra_conv1d_fwd(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c_in, t_out, o, k,
+        i_f, stride, groups, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, CONV1D.name)
+    CONV1D.launches += 1
+    return out
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
+                     bias: Optional[torch.Tensor], dilation: int) -> torch.Tensor:
+    """DEPTHWISE_CONV_2D over time: x [B, T_in, C], w [K, C] →
+    [B, T_in − (K − 1)·dilation, C]."""
+    if not _on_cuda(x, w, bias):
+        return depthwise_conv1d_plain(x, w, bias, dilation)
+    b, t_in, c = x.shape
+    k = w.shape[0]
+    t_out = t_in - (k - 1) * dilation
+    if w.shape[1] != c or t_out < 1:
+        raise ValueError(
+            f"depthwise shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    out = torch.empty((b, t_out, c), device=x.device, dtype=torch.float32)
+    err = _lib().lyra_depthwise_conv1d_fwd(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c, t_out, k,
+        dilation, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, DEPTHWISE.name)
+    DEPTHWISE.launches += 1
+    return out
+
+
+def transpose_conv1d(x: torch.Tensor, w: torch.Tensor,
+                     bias: Optional[torch.Tensor], stride: int,
+                     t_out: int) -> torch.Tensor:
+    """TRANSPOSE_CONV over time: x [B, T_in, I], w [K, I, O] → [B, t_out, O],
+    t_out ≤ (T_in − 1)·stride + K."""
+    if not _on_cuda(x, w, bias):
+        return transpose_conv1d_plain(x, w, bias, stride, t_out)
+    b, t_in, i = x.shape
+    k, _, o = w.shape
+    if w.shape[1] != i or t_out > (t_in - 1) * stride + k:
+        raise ValueError(
+            f"transpose conv shapes x {tuple(x.shape)} w {tuple(w.shape)} "
+            f"t_out {t_out}")
+    out = torch.empty((b, t_out, o), device=x.device, dtype=torch.float32)
+    err = _lib().lyra_transpose_conv1d_fwd(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, i, t_out, o, k,
+        stride, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, TCONV.name)
+    TCONV.launches += 1
+    return out

@@ -1,0 +1,34 @@
+"""Carry engine state trees between the JAX package and the port.
+
+A JAX engine state tree, taken leaf by leaf as `np.asarray`, becomes a
+torch tree with the same keys and shapes, and back.  The one dtype that
+differs is JAX's uint32 (the comfort-noise phase counter `cng.ctr`), which
+the port holds as int64 (torch lacks uint32 arithmetic on the CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(tree: Any, device="cpu") -> Any:
+    """numpy (or JAX) state tree → torch tree on `device`."""
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)
+
+
+def state_to_numpy(tree: Any) -> Any:
+    """torch state tree → numpy tree with the JAX package's dtypes."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    a = tree.detach().cpu().numpy()
+    if a.dtype == np.int64:
+        a = a.astype(np.uint32)
+    return a

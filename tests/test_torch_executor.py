@@ -1,0 +1,150 @@
+"""The port's graph executor and fused conv stack vs the JAX package.
+
+Both synthetic models (tests/golden/synthetic_lyra/small) run 50 streaming
+frames with state carried between them, from the same numpy inputs,
+through the JAX executor, the JAX Pallas megakernel (interpret mode), the
+port's executor and the port's FusedStack (whose conv-stack kernels run
+their plain versions on CPU tensors).  Bar: max abs error ≤ 1e-5 ×
+max|ref| per frame (float32; the frameworks sum in different orders).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lyra_tpu.ops.fused_stack import FusedStackKernel
+from lyra_tpu.tflite.executor import load_graph as jax_load_graph
+from lyra_tpu_torch.ops import conv_stack
+from lyra_tpu_torch.ops.fused_stack import FusedStack
+from lyra_tpu_torch.tflite import executor
+from lyra_tpu_torch.tflite.executor import load_graph
+
+SMALL = os.path.join(os.path.dirname(__file__), "golden", "synthetic_lyra",
+                     "small")
+B, FRAMES, REL_TOL = 4, 50, 1e-5
+MODELS = {"soundstream_encoder": ((320,), 0.1), "lyragan": ((1, 64), 1.0)}
+
+
+def _inputs(name, seed):
+    shape, scale = MODELS[name]
+    rng = np.random.default_rng(seed)
+    return rng.normal(0.0, scale, (FRAMES, B) + shape).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """name → (executor outputs, pallas outputs, final executor state)."""
+    out = {}
+    for name in MODELS:
+        path = os.path.join(SMALL, f"{name}.tflite")
+        g = jax_load_graph(path)
+        step = jax.jit(jax.vmap(lambda st, x: g(st, input_audio=x)))
+        st = {k: jnp.broadcast_to(v, (B,) + v.shape)
+              for k, v in g.init_state().items()}
+        fused = FusedStackKernel(path, mode="float", block_streams=B,
+                                 interpret=True)
+        fs = fused.init_state(B)
+        ys, ks = [], []
+        for x in _inputs(name, 0):
+            o, st = step(st, jnp.asarray(x[:, None]))
+            ys.append(np.asarray(o["output_0"]).reshape(B, -1))
+            yk, fs = fused(fs, jnp.asarray(x))
+            ks.append(np.asarray(yk).reshape(B, -1))
+        out[name] = (ys, ks, jax.tree.map(np.asarray, st))
+    return out
+
+
+def _run_port(model, name):
+    st = model.init_state(B)
+    ys = []
+    for x in _inputs(name, 0):
+        x = torch.from_numpy(x)
+        if isinstance(model, FusedStack):
+            y, st = model(st, x)
+        else:
+            o, st = model(st, input_audio=x)
+            y = o["output_0"]
+        ys.append(y.reshape(B, -1).numpy())
+    return ys, st
+
+
+def _assert_frames_close(got, ref):
+    for t, (g, r) in enumerate(zip(got, ref)):
+        err = np.abs(g - r).max()
+        assert err <= REL_TOL * np.abs(r).max(), (t, err, np.abs(r).max())
+
+
+@pytest.mark.parametrize("backend", ["executor", "fused_stack"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_port_matches_jax_over_50_frames(jax_reference, name, backend):
+    path = os.path.join(SMALL, f"{name}.tflite")
+    model = load_graph(path) if backend == "executor" else FusedStack(path)
+    ys, st = _run_port(model, name)
+    ref_exec, ref_pallas, ref_state = jax_reference[name]
+    _assert_frames_close(ys, ref_exec)
+    _assert_frames_close(ys, ref_pallas)
+    # Same state keys and shapes as the JAX engine's tree, close values.
+    assert set(st) == set(ref_state)
+    for k, v in ref_state.items():
+        assert tuple(st[k].shape) == v.shape, k
+        np.testing.assert_allclose(st[k].numpy(), v,
+                                   atol=REL_TOL * max(np.abs(v).max(), 1.0))
+
+
+def test_fused_stack_partition_matches_jax():
+    """The dataflow partition (prologue / core / epilogue, core state
+    vars) is the JAX kernel's, and every core conv goes to a kernel."""
+    for name in MODELS:
+        path = os.path.join(SMALL, f"{name}.tflite")
+        j = FusedStackKernel(path, mode="float", interpret=True)
+        t = FusedStack(path)
+        assert t._prologue == j._prologue and t._epilogue == j._epilogue
+        assert t._core == j._core
+        assert t._core_state_names == j._core_state_names
+        kinds = {t.sg.ops[i].name for i in t._core}
+        assert {"CONV_2D", "DEPTHWISE_CONV_2D"} <= kinds
+        convs = [i for i in t._core if t.sg.ops[i].name in
+                 ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")]
+        assert list(t._convs) == convs
+
+
+def test_conv_wrappers_run_plain_versions_on_cpu():
+    """On CPU tensors the K1 wrappers are exactly the executor lowering and
+    launch nothing."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 12, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 2, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(8,)).astype(np.float32))
+    before = [k.launches for k in conv_stack.KERNELS]
+    y = conv_stack.conv1d(x, w, b, stride=2)  # groups = 4
+    ref = torch.nn.functional.conv1d(
+        x.transpose(1, 2), w.permute(2, 1, 0), b, stride=2, groups=4)
+    torch.testing.assert_close(y, ref.transpose(1, 2), rtol=0, atol=1e-6)
+    wd = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    yd = conv_stack.depthwise_conv1d(x, wd, b, dilation=3)
+    assert yd.shape == (2, 12 - 6, 8)
+    torch.testing.assert_close(
+        yd[:, 0], x[:, 0] * wd[0] + x[:, 3] * wd[1] + x[:, 6] * wd[2] + b,
+        rtol=1e-6, atol=1e-5)
+    wt = torch.from_numpy(rng.normal(size=(4, 8, 5)).astype(np.float32))
+    yt = conv_stack.transpose_conv1d(x, wt, None, stride=2, t_out=25)
+    assert yt.shape == (2, 25, 5)
+    # out[t] = Σ_k x[(t − k)/2] · W[k] over taps with (t − k) even.
+    torch.testing.assert_close(yt[:, 5], x[:, 2] @ wt[1] + x[:, 1] @ wt[3],
+                               rtol=1e-5, atol=1e-5)
+    assert [k.launches for k in conv_stack.KERNELS] == before
+
+
+@pytest.mark.parametrize("kwargs", [{"mode": "bf16"}, {"mode": "int8"},
+                                    {"mode": "fakequant"},
+                                    {"boundary_store": "f8"}])
+def test_unported_modes_are_refused(kwargs):
+    from lyra_tpu.tflite import model as tfl
+
+    mdef = tfl.load(os.path.join(SMALL, "lyragan.tflite"))
+    with pytest.raises(NotImplementedError):
+        executor.GraphFn(mdef, **kwargs)

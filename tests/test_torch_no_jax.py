@@ -1,0 +1,63 @@
+"""The port runs without jax: the GPU machine has none.
+
+A subprocess with LYRA_TPU_PLATFORM unset installs a `sys.meta_path` finder
+that raises on any jax/jaxlib import, then imports lyra_tpu_torch, builds
+both engines on CPU from the small synthetic fixture and runs one tick.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    class NoJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError(f"jax import attempted: {name}")
+            return None
+
+    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    sys.meta_path.insert(0, NoJax())
+
+    import numpy as np
+    import torch
+
+    import lyra_tpu_torch
+    from lyra_tpu_torch import packet
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.utils import state
+
+    path = sys.argv[1]
+    enc = EncoderEngine(16000, path, enable_dtx=True)
+    dec = DecoderEngine(16000, path)
+    es, ds = enc.init_state(2), dec.init_state(2)
+    audio = torch.from_numpy(
+        np.random.default_rng(0).normal(0, 3000, (2, 320)).astype(np.float32))
+    idx, _, es = enc.step(es, audio, 16)
+    wire = packet.pack_wire_device(idx, 64)
+    back = torch.full((2, 46), -1, dtype=torch.int32)
+    back[:, :16] = packet.unpack_wire_device(wire, 64)
+    out, cn, ds = dec.step(ds, back, torch.tensor([True, False]))
+    assert out.shape == (2, 320) and bool(torch.isfinite(out).all())
+    state.state_to_numpy(ds)
+    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    print("NO_JAX_TICK_OK")
+""")
+
+
+def test_port_imports_and_ticks_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "LYRA_TPU_PLATFORM"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    small = os.path.join(REPO, "tests", "golden", "synthetic_lyra", "small")
+    proc = subprocess.run([sys.executable, "-c", _CHILD, small], env=env,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NO_JAX_TICK_OK" in proc.stdout
