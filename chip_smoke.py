@@ -10,19 +10,38 @@ that holds them, otherwise the synthetic full-width fixture
 (tests/golden/synthetic_lyra/full, random weights from a seed).
 
 Phases, one line each; any failed check raises and exits nonzero:
-  1. build   the CUDA kernels from lyra_tpu_torch/ops/csrc with nvcc;
-  2. K1      the fused conv stack vs the plain executor (SoundStream and
-             LyraGAN, B=64, 20 frames, state carried, TF32 off; bar
-             1e-5 × max|plain|), then every conv-stack kernel call of one
-             hop vs its plain version at B=1024, timed;
-  3. K2      the RVQ kernel vs its plain version at B=4096: rows may
-             differ only at near-ties, at most 0.1% of rows;
-  4. main    50 ticks at B=1024 with ~10% of hops lost, launch
-             counts reset before and read after, kernel names checked in
-             a torch.profiler window, output finite at speech level, and
-             the kernel path's decoder vs the plain path's on the same
-             indices (within 2 int16 LSB);
-  5. timing  p50/p99 ms per tick, kernel path vs plain path.
+  1. build    the CUDA kernels from lyra_tpu_torch/ops/csrc with nvcc, one
+              process per source, started together;
+  2. K1       the fused conv stack vs the plain executor (SoundStream and
+              LyraGAN, B=64, 20 frames, state carried, TF32 off; bar
+              1e-5 × max|plain|), then every conv-stack kernel call of one
+              hop vs its plain version at B=1024, timed;
+  3. K1-bf16  the same in bf16 mode: the fused stack vs the plain bf16
+              executor and vs the plain f32 one (bar 3e-2 × max|plain|),
+              then every bf16 kernel call of one hop at B=1024 vs its
+              plain bf16 version (bar 2^-7 × max|ref|, two bf16
+              roundings), timed;
+  4. K2       the RVQ kernel vs its plain version at B=4096: rows may
+              differ only at near-ties, at most 0.1% of rows;
+  5. rates    the resampler on the card vs tests/golden/resampler_goldens
+              .npz at all six rate pairs (bar 0.05 at int16 scale), then a
+              B=1024, 50-hop streaming run at 16↔48 kHz vs the
+              single-stream numpy path;
+  6. main     the float engines at 16 kHz, 50 ticks at B=1024 with ~10%
+              of hops lost, launch counts reset before and read after,
+              kernel names checked in a torch.profiler window, output
+              finite at speech level, and the kernel path's decoder vs the
+              plain path's on the same indices (within 2 int16 LSB);
+  7. main-bf16  the same slice in bf16 mode at 48 kHz (the JAX package's
+              serving mode, a 48 kHz fleet), then vs the plain bf16 path
+              at B=64 from identical inputs: features and decoder audio
+              within 3e-2 × max|plain|, indices identical;
+  8. timing   p50/p99 ms per tick, kernel path vs plain path, float at
+              16 kHz and bf16 at 48 kHz.
+The 3e-2 bars were measured on the small fixture; where the full fixture
+needs more room, the bar becomes 1.5 × the deviation of the plain bf16
+path from the plain f32 path on the same inputs, measured in the same
+phase (both numbers are printed).
 Then one JSON line with every kernel, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -40,16 +59,24 @@ os.environ.pop("LYRA_TPU_PLATFORM", None)
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FULL_FIXTURE = os.path.join(REPO, "tests", "golden", "synthetic_lyra", "full")
 REL_TOL = 1e-5
+BF16_REL_TOL = 3e-2  # whole models and engines in bf16 vs plain
+BF16_CALL_TOL = 2.0 ** -7  # one kernel call: two bf16 roundings
+GOLDEN_TOL = 0.05  # resampler vs goldens, int16 scale (the JAX test's bar)
 BATCH, TICKS = 1024, 50  # the main path's streams and ticks
+RATE_BF16 = 48000  # the bf16 main path's fleet rate
+# The two graphs of the fused stack: input shape per stream, input scale.
+MODELS = (("soundstream_encoder", (320,), 0.1), ("lyragan", (1, 64), 1.0))
 
 
 class SmokeFailure(RuntimeError):
@@ -98,7 +125,9 @@ def phase_build():
     from lyra_tpu_torch.ops import cuda_build
 
     t0 = time.time()
-    libs = [cuda_build.build(src) for src in ("conv_stack.cu", "rvq_encode.cu")]
+    sources = ("conv_stack.cu", "rvq_encode.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        libs = list(pool.map(cuda_build.build, sources))
     ptxas = []
     for src in ("conv_stack", "rvq_encode"):
         with open(os.path.join(cuda_build.BUILD_DIR, f"{src}.ptxas.txt")) as f:
@@ -110,13 +139,13 @@ def phase_build():
 def phase_k1(path, batch, dev, stats):
     import torch
 
+    from lyra_tpu_torch.ops import conv_stack
     from lyra_tpu_torch.ops.fused_stack import FusedStack
     from lyra_tpu_torch.tflite.executor import load_graph
 
     rng = np.random.default_rng(1)
     worst = {}
-    for name, shape, scale in (("soundstream_encoder", (320,), 0.1),
-                               ("lyragan", (1, 64), 1.0)):
+    for name, shape, scale in MODELS:
         p = os.path.join(path, f"{name}.tflite")
         fused, plain = FusedStack(p, device=dev), load_graph(p, device=dev)
         fs, ps = fused.init_state(64), plain.init_state(64)
@@ -149,10 +178,83 @@ def phase_k1(path, batch, dev, stats):
     print(f"K1 vs plain: ok, max rel err soundstream "
           f"{worst['soundstream_encoder']:.3e}, lyragan {worst['lyragan']:.3e} "
           f"(B=64, 20 frames, bar {REL_TOL}); per-hop kernel calls at "
-          f"B={batch}: " + ", ".join(
-              f"{k} {v['calls']} calls {v['ms']:.4f} ms vs plain "
-              f"{v['plain_ms']:.4f} ms" for k, v in stats.items()
-              if k != "rvq_encode"))
+          f"B={batch}: {_calls(stats, conv_stack.KERNELS_F32)}")
+
+
+def _calls(stats, kernels) -> str:
+    return ", ".join(
+        f"{k.name} {stats[k.name]['calls']} calls {stats[k.name]['ms']:.4f} "
+        f"ms vs plain {stats[k.name]['plain_ms']:.4f} ms, max abs err "
+        f"{stats[k.name]['max_abs_err']:.3e}" for k in kernels)
+
+
+def phase_k1_bf16(path, batch, dev, stats):
+    import torch
+
+    from lyra_tpu_torch.ops import conv_stack
+    from lyra_tpu_torch.ops.fused_stack import FusedStack
+    from lyra_tpu_torch.tflite.executor import load_graph
+
+    rng = np.random.default_rng(4)
+    lines = []
+    for name, shape, scale in MODELS:
+        p = os.path.join(path, f"{name}.tflite")
+        fused = FusedStack(p, mode="bf16", device=dev)
+        plain16 = load_graph(p, mode="bf16", device=dev)
+        plain32 = load_graph(p, device=dev)
+        fs, s16, s32 = (fused.init_state(64), plain16.init_state(64),
+                        plain32.init_state(64))
+        err16 = err32 = plain_dev = 0.0
+        for _ in range(20):
+            x = torch.tensor(rng.normal(0.0, scale, (64,) + shape),
+                             dtype=torch.float32, device=dev)
+            y, fs = fused(fs, x)
+            o16, s16 = plain16(s16, input_audio=x)
+            o32, s32 = plain32(s32, input_audio=x)
+            r16, r32 = o16["output_0"], o32["output_0"]
+            check(bool(torch.isfinite(y).all()), f"K1-bf16 {name}: non-finite")
+            err16 = max(err16, rel_err(y, r16))
+            err32 = max(err32, rel_err(y, r32))
+            plain_dev = max(plain_dev, rel_err(r16, r32))
+        bar = bf16_bar(plain_dev)
+        check(err16 <= bar, f"K1-bf16 {name}: vs plain bf16 {err16} > {bar}")
+        check(err32 <= bar, f"K1-bf16 {name}: vs plain f32 {err32} > {bar}")
+        lines.append(f"{name} vs plain bf16 {err16:.3e}, vs plain f32 "
+                     f"{err32:.3e}, plain bf16 vs plain f32 {plain_dev:.3e}, "
+                     f"bar {bar:.3e}")
+        # Every bf16 kernel call of one hop at the main path's batch.
+        for kernel, fn, plain_fn, (t_in, c_in), w, bias, extra in \
+                fused.conv_launches():
+            x = torch.randn((batch, t_in, c_in), device=dev,
+                            dtype=torch.bfloat16)
+            got, ref = fn(x, w, bias, *extra), plain_fn(x, w, bias, *extra)
+            check(got.dtype == ref.dtype == torch.bfloat16,
+                  f"K1-bf16 {kernel.name}: dtype {got.dtype}")
+            tol = BF16_CALL_TOL * ref.float().abs().max().item()
+            abs_err = (got.float() - ref.float()).abs().max().item()
+            check(abs_err <= tol, f"K1-bf16 {kernel.name} {tuple(x.shape)}: "
+                  f"abs err {abs_err} > {tol}")
+            s = stats[kernel.name]
+            s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+            s["ms"] += cuda_ms(lambda: fn(x, w, bias, *extra))
+            s["plain_ms"] += cuda_ms(lambda: plain_fn(x, w, bias, *extra))
+            s["calls"] += 1
+    print(f"K1-bf16 vs plain: ok, max rel err {'; '.join(lines)} (B=64, 20 "
+          f"frames); per-hop bf16 kernel calls at B={batch} (bar "
+          f"{BF16_CALL_TOL} x max|ref|): "
+          f"{_calls(stats, conv_stack.KERNELS_BF16)}")
+
+
+def rel_err(got, ref) -> float:
+    """max|got − ref| / max|ref|, in float32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def bf16_bar(plain_dev: float) -> float:
+    """3e-2, or 1.5 × the plain bf16 path's measured deviation from the
+    plain f32 path where that is larger (random full-width weights)."""
+    return max(BF16_REL_TOL, 1.5 * plain_dev)
 
 
 def phase_k2(rvq, batch, dev, stats):
@@ -191,12 +293,60 @@ def phase_k2(rvq, batch, dev, stats):
           f"{s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} ms")
 
 
-def _inputs(batch, ticks, dev):
+def phase_rates(batch, dev):
+    import torch
+
+    from lyra_tpu_torch.dsp.resampler import Resampler
+
+    data = np.load(os.path.join(REPO, "tests", "golden",
+                                "resampler_goldens.npz"))
+    worst = {}
+    for key in sorted({k[3:] for k in data.files if k.startswith("in_")}):
+        rates = tuple(int(v) for v in key.split("_"))
+        r = Resampler(*rates, device=dev)
+        x, want = data[f"in_{key}"], data[f"out_{key}"]
+        block = rates[0] // 50
+        state, got = r.init_state(x.shape[0]), []
+        for i in range(x.shape[1] // block):
+            y, state = r.resample(state, torch.tensor(
+                x[:, i * block:(i + 1) * block], device=dev))
+            got.append(y.cpu().numpy())
+        got = np.concatenate(got, axis=1)
+        check(got.shape == want.shape, f"rates {key}: shape {got.shape}")
+        worst[key] = float(np.abs(got - want).max())
+        check(worst[key] <= GOLDEN_TOL,
+              f"rates {key}: {worst[key]} > {GOLDEN_TOL} vs goldens")
+    # A fleet's streaming run vs the single-stream numpy path.
+    hops, rows = 50, list(range(0, batch, 64))
+    stream = {}
+    for rates in ((RATE_BF16, 16000), (16000, RATE_BF16)):
+        r = Resampler(*rates, device=dev)
+        block = rates[0] // 50
+        rng = np.random.default_rng(rates[0])
+        x = np.clip(rng.normal(0.0, 3000.0, (batch, hops * block)),
+                    -32768, 32767).astype(np.float32)
+        xd = torch.tensor(x, device=dev)
+        state, got = r.init_state(batch), []
+        for i in range(hops):
+            y, state = r.resample(state, xd[:, i * block:(i + 1) * block])
+            got.append(y)
+        got = torch.cat(got, dim=1)[rows].cpu().numpy()
+        ref = np.stack([r.resample_np(x[row]) for row in rows])
+        key = f"{rates[0]}_{rates[1]}"
+        stream[key] = float(np.abs(got - ref).max())
+        check(stream[key] <= GOLDEN_TOL,
+              f"rates {key} streaming: {stream[key]} > {GOLDEN_TOL}")
+    print(f"rates: ok, max abs dev vs goldens (int16 scale, bar {GOLDEN_TOL}) "
+          f"{worst}; B={batch} x {hops} hops streaming vs numpy on "
+          f"{len(rows)} rows {stream}")
+
+
+def _inputs(batch, ticks, dev, hop=320):
     import torch
 
     rng = np.random.default_rng(3)
     gain = np.where(rng.random((ticks, batch, 1)) < 0.8, 3000.0, 300.0)
-    audio = torch.tensor(rng.normal(0.0, 1.0, (ticks, batch, 320)) * gain,
+    audio = torch.tensor(rng.normal(0.0, 1.0, (ticks, batch, hop)) * gain,
                          dtype=torch.float32, device=dev)
     lost = rng.random((ticks, batch)) < 0.09
     lost[ticks // 2:ticks // 2 + 8, ::16] = True  # bursts reach comfort noise
@@ -217,22 +367,23 @@ def _tick(enc, dec, es, ds, audio, received, num_bits):
     return out, cn, es, ds, dec_idx
 
 
-def phase_main(path, batch, ticks, dev, profile_out):
+def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
+    """Run `ticks` ticks of the slice at `batch` with every launch count set
+    to 0 just before and read just after; the last 3 ticks under
+    torch.profiler.  Checks launches, kernel names, shape, finiteness and
+    speech level; returns (launches, summary)."""
     import torch
 
-    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.ops import conv_stack, rvq_kernel
 
-    kernels = conv_stack.KERNELS + rvq_kernel.KERNELS
-    enc = EncoderEngine(16000, path, device=dev)
-    dec = DecoderEngine(16000, path, device=dev)
-    audio, received = _inputs(batch, ticks, dev)
+    audio, received = _inputs(batch, ticks, dev, enc.hop_samples)
     lost = 1.0 - received.float().mean().item()
     es, ds = enc.init_state(batch), dec.init_state(batch)
     num_bits = 120
     outs, cn_count = [], 0
     prof_window = range(ticks - 3, ticks)
-    for k in kernels:
+    every = conv_stack.KERNELS + rvq_kernel.KERNELS
+    for k in every:
         k.launches = 0
     for t in range(ticks):
         if t == prof_window.start:
@@ -246,12 +397,16 @@ def phase_main(path, batch, ticks, dev, profile_out):
         cn_count += int(cn.sum().item())
     torch.cuda.synchronize()
     prof.__exit__(None, None, None)
-    launches = {k.name: k.launches for k in kernels}
-    for name, n in launches.items():
-        check(n > 0, f"main path never launched {name}")
+    launches = {k.name: k.launches for k in every}
+    for k in kernels:
+        check(launches[k.name] > 0, f"main path never launched {k.name}")
+    others = {n: c for n, c in launches.items()
+              if c and n not in {k.name for k in kernels}}
+    check(not others, f"main path launched kernels of another mode {others}")
 
     out = torch.stack(outs)
-    check(out.shape == (ticks, batch, 320), f"output shape {tuple(out.shape)}")
+    check(out.shape == (ticks, batch, enc.hop_samples),
+          f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "main path: non-finite audio")
     rms = out[10:].float().pow(2).mean().sqrt().item()
     check(300.0 <= rms <= 15000.0, f"main path: RMS {rms} not speech-level")
@@ -260,12 +415,36 @@ def phase_main(path, batch, ticks, dev, profile_out):
     cuda_names = [e.key for e in events
                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     check(bool(cuda_names), "profiler recorded no CUDA events")
-    seen = {k.name: any(k.name in n for n in cuda_names) for k in kernels}
+    # A kernel's own name, not a longer one that contains it (demangled
+    # "ns::conv1d_fwd(" or mangled "10conv1d_fwdE").
+    seen = {k.name: any(re.search(rf"(?<![A-Za-z_]){k.name}(?![a-z0-9_])", n)
+                        for n in cuda_names)
+            for k in kernels}
     check(all(seen.values()), f"profiler: kernels missing {seen}")
-    if profile_out:
-        os.makedirs(profile_out, exist_ok=True)
-        with open(os.path.join(profile_out, "chip_smoke_profile.txt"), "w") as f:
+    if profile_file:
+        os.makedirs(os.path.dirname(profile_file), exist_ok=True)
+        with open(profile_file, "w") as f:
             f.write(events.table(sort_by="cuda_time_total", row_limit=60))
+    return {k.name: launches[k.name] for k in kernels}, (
+        f"B={batch} x {ticks} ticks at {enc.sample_rate_hz} Hz, {lost:.1%} "
+        f"of hops lost, audio RMS {rms:.1f} (int16), {cn_count} "
+        f"comfort-noise stream-hops; launches "
+        f"{ {k.name: launches[k.name] for k in kernels} }; kernel names in "
+        f"profiler: {', '.join(seen)}")
+
+
+def phase_main(path, batch, ticks, dev, profile_out):
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    enc = EncoderEngine(16000, path, device=dev)
+    dec = DecoderEngine(16000, path, device=dev)
+    launches, summary = _drive(
+        enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS, batch, ticks,
+        dev, profile_out and os.path.join(profile_out,
+                                          "chip_smoke_profile.txt"))
+    audio, received = _inputs(batch, ticks, dev)
+    num_bits = 120
 
     # Correctness against the plain path: the same indices through the
     # plain decoder agree with the kernel decoder within 2 int16 LSB.
@@ -285,13 +464,90 @@ def phase_main(path, batch, ticks, dev, profile_out):
     check(worst_lsb <= 2.0, f"kernel vs plain decoder: {worst_lsb} LSB")
     check(same_idx >= 0.99, f"kernel vs plain encoder: {same_idx:.4f} rows "
           f"with identical indices")
-    print(f"main path: ok, B={batch} x {ticks} ticks, {lost:.1%} of hops "
-          f"lost, audio RMS "
-          f"{rms:.1f} (int16), {cn_count} comfort-noise stream-hops; "
-          f"launches {launches}; kernel names in profiler: "
-          f"{', '.join(seen)}; vs plain path (B={b_ref}, 10 "
+    print(f"main path: ok, {summary}; vs plain path (B={b_ref}, 10 "
           f"ticks): rows with identical indices {same_idx:.4f}, decoder max "
           f"diff {worst_lsb} LSB")
+    return launches
+
+
+def _features(enc, state, audio):
+    """The encoder's resample → clip → SoundStream features from `state`,
+    without advancing it."""
+    from lyra_tpu_torch.dsp import utils as dsp_utils
+
+    x, _ = enc.resampler.resample(state["resampler"], audio)
+    x = dsp_utils.int16_to_unit(dsp_utils.clip_to_int16(x))
+    return enc.soundstream.extract(state["soundstream"], x)[0]
+
+
+def _as_float(tree):
+    """A bf16 engine's state tree with its bf16 leaves widened to float32,
+    for the float engines."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _as_float(v) for k, v in tree.items()}
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
+
+
+def phase_main_bf16(path, batch, ticks, dev, profile_out):
+    """The bf16 slice at 48 kHz, then the kernel path vs the plain bf16 path
+    from identical inputs: each tick the plain engines start from the
+    kernel engines' pre-tick state (and the plain f32 engines from the same
+    state widened), so a discrete decision cannot carry a difference."""
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    rate, num_bits = RATE_BF16, 120
+    nq = num_bits // 4
+    enc = EncoderEngine(rate, path, mode="bf16", device=dev)
+    dec = DecoderEngine(rate, path, mode="bf16", device=dev)
+    launches, summary = _drive(
+        enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS, batch, ticks,
+        dev, profile_out and os.path.join(profile_out,
+                                          "chip_smoke_profile_bf16.txt"))
+
+    b_ref = min(batch, 64)
+    audio, received = _inputs(b_ref, 10, dev, enc.hop_samples)
+    plain = {mode: (EncoderEngine(rate, path, backend="plain", mode=mode,
+                                  device=dev),
+                    DecoderEngine(rate, path, backend="plain", mode=mode,
+                                  device=dev))
+             for mode in ("bf16", "float")}
+    (enc_p, dec_p), (enc_f, dec_f) = plain["bf16"], plain["float"]
+    es, ds = enc.init_state(b_ref), dec.init_state(b_ref)
+    err = {"features": 0.0, "audio": 0.0}
+    plain_dev = {"features": 0.0, "audio": 0.0}
+    for t in range(10):
+        a, r = audio[t], received[t]
+        f_k, f_p = _features(enc, es, a), _features(enc_p, es, a)
+        f_f = _features(enc_f, _as_float(es), a)
+        err["features"] = max(err["features"], rel_err(f_k, f_p))
+        plain_dev["features"] = max(plain_dev["features"], rel_err(f_p, f_f))
+        # Indices from identical features: K2 vs the plain search.
+        idx_k = enc.rvq.quantize(f_p, nq, method="kernel")
+        idx_p = enc_p.rvq.quantize(f_p, nq, method="fast")
+        check(torch.equal(idx_k, idx_p),
+              f"main-bf16: indices differ from identical features, tick {t}")
+        # Decoder audio from identical indices and pre-tick state.
+        out_k, _, ds_next = dec.step(ds, idx_k, r)
+        out_p, _, _ = dec_p.step(ds, idx_k, r)
+        out_f, _, _ = dec_f.step(_as_float(ds), idx_k, r)
+        err["audio"] = max(err["audio"], rel_err(out_k, out_p))
+        plain_dev["audio"] = max(plain_dev["audio"], rel_err(out_p, out_f))
+        _, _, es = enc.step(es, a, nq)
+        ds = ds_next
+    bars = {k: bf16_bar(v) for k, v in plain_dev.items()}
+    for k in err:
+        check(err[k] <= bars[k], f"main-bf16: kernel vs plain bf16 {k} "
+              f"rel err {err[k]} > {bars[k]}")
+    print(f"main-bf16 path: ok, {summary}; vs plain bf16 path (B={b_ref}, 10 "
+          f"ticks, identical inputs): indices identical, max rel err "
+          f"features {err['features']:.3e}, audio {err['audio']:.3e}; plain "
+          f"bf16 vs plain f32: features {plain_dev['features']:.3e}, audio "
+          f"{plain_dev['audio']:.3e}; bars {bars}")
     return launches
 
 
@@ -300,39 +556,44 @@ def phase_timing(path, batch, dev, gpu):
 
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
 
-    audio, received = _inputs(batch, 20, dev)
-    paths = {}
-    for backend in ("kernel", "plain"):
-        enc = EncoderEngine(16000, path, backend=backend, device=dev)
-        dec = DecoderEngine(16000, path, backend=backend, device=dev)
-        paths[backend] = [enc, dec, enc.init_state(batch),
-                          dec.init_state(batch), []]
-    # Turns: plain, kernel, kernel, plain — 20 ticks each after warm-up.
-    for backend in ("plain", "kernel", "kernel", "plain"):
-        enc, dec, es, ds, times = paths[backend]
-        for t in range(23):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[t % 20],
-                                    received[t % 20], 120)
-            torch.cuda.synchronize()
-            if t >= 3:
-                times.append((time.perf_counter() - t0) * 1e3)
-        paths[backend][2:4] = [es, ds]
     res = {}
-    for backend, (_, _, _, _, times) in paths.items():
-        res[backend] = (float(np.percentile(times, 50)),
-                        float(np.percentile(times, 99)))
-    print(f"timing: B={batch} encode+wire+decode per tick, 40 ticks each: "
-          f"kernel p50 {res['kernel'][0]:.3f} ms p99 {res['kernel'][1]:.3f} ms; "
-          f"plain p50 {res['plain'][0]:.3f} ms p99 {res['plain'][1]:.3f} ms "
-          f"[{gpu}]")
+    for rate, mode in ((16000, "float"), (RATE_BF16, "bf16")):
+        paths = {}
+        for backend in ("kernel", "plain"):
+            enc = EncoderEngine(rate, path, backend=backend, mode=mode,
+                                device=dev)
+            dec = DecoderEngine(rate, path, backend=backend, mode=mode,
+                                device=dev)
+            paths[backend] = [enc, dec, enc.init_state(batch),
+                              dec.init_state(batch), []]
+        audio, received = _inputs(batch, 20, dev, paths["kernel"][0].hop_samples)
+        # Turns: plain, kernel, kernel, plain — 20 ticks each after warm-up.
+        for backend in ("plain", "kernel", "kernel", "plain"):
+            enc, dec, es, ds, times = paths[backend]
+            for t in range(23):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[t % 20],
+                                        received[t % 20], 120)
+                torch.cuda.synchronize()
+                if t >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            paths[backend][2:4] = [es, ds]
+        for backend, (_, _, _, _, times) in paths.items():
+            res[(mode, rate, backend)] = (float(np.percentile(times, 50)),
+                                          float(np.percentile(times, 99)))
+        del paths
+    print(f"timing: B={batch} encode+wire+decode per tick, 40 ticks each: " +
+          "; ".join(f"{mode} {rate // 1000} kHz {backend} p50 {p50:.3f} ms "
+                    f"p99 {p99:.3f} ms"
+                    for (mode, rate, backend), (p50, p99) in res.items()) +
+          f" [{gpu}]")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
-                    help="directory for the profiler's kernel table")
+                    help="directory for the profiler's kernel tables")
     args = ap.parse_args(argv)
 
     import torch
@@ -357,9 +618,14 @@ def main(argv=None) -> int:
     stats = {k.name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "calls": 0} for k in kernels}
     phase_k1(path, BATCH, dev, stats)
+    phase_k1_bf16(path, BATCH, dev, stats)
     phase_k2(ResidualVectorQuantizer.from_model_path(path, dev), BATCH, dev,
              stats)
+    phase_rates(BATCH, dev)
     launches = phase_main(path, BATCH, TICKS, dev, args.profile_out)
+    launches_bf16 = phase_main_bf16(path, BATCH, TICKS, dev, args.profile_out)
+    for name, n in launches_bf16.items():
+        launches[name] = launches.get(name, 0) + n
     phase_timing(path, BATCH, dev, gpu)
 
     print(json.dumps({"kernels": [

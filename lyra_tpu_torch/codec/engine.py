@@ -17,12 +17,17 @@ those wrappers run their plain versions.  `backend="plain"` runs the
 executor lowering and the `"fast"` RVQ search — the plain reference on
 either device.
 
-Differences from the JAX engines: only 16 kHz and float mode are ported
-(the resampler, bf16, int8 state storage and fp8 boundaries are later
-work, so there is no `mode` argument); comfort noise is always
-synthesized (the JAX engine skips it with a `lax.cond` when no stream needs
-it — the masked result is bit-identical, and testing `any()` on the host
-would cost a device sync every tick).
+`mode` is "float" or "bf16" (the JAX package's serving mode: the conv
+stacks compute in bf16 and the decoder's RVQ decode rounds the codebooks
+to bf16).  `sample_rate_hz` is any of `config.SUPPORTED_SAMPLE_RATES`: the
+codec runs at 16 kHz and a `"resampler"` state leaf carries the
+polyphase filter's history at the stream's rate, as in the JAX engines.
+
+Differences from the JAX engines: int8 and fakequant modes, int8 state
+storage and fp8 boundaries are not ported and are refused; comfort noise
+is always synthesized (the JAX engine skips it with a `lax.cond` when no
+stream needs it — the masked result is bit-identical, and testing `any()`
+on the host would cost a device sync every tick).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from lyra_tpu_torch.codec.feature_estimator import (
 )
 from lyra_tpu_torch.codec.noise_estimator import NoiseEstimator
 from lyra_tpu_torch.dsp import utils as dsp_utils
+from lyra_tpu_torch.dsp.resampler import Resampler
 from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
 from lyra_tpu_torch.models.streaming import (
     BACKENDS,
@@ -48,6 +54,7 @@ from lyra_tpu_torch.models.streaming import (
     SoundStreamEncoder,
     mask_tree,
 )
+from lyra_tpu_torch.tflite.executor import compute_dtype
 
 State = Dict[str, Any]
 
@@ -72,16 +79,26 @@ def has_model_assets(model_path: str) -> bool:
                for a in config.ASSETS)
 
 
-def _checked_common(sample_rate_hz: int, model_path: str,
-                    backend: str) -> None:
+def _checked_common(sample_rate_hz: int, model_path: str, backend: str,
+                    mode: str, state_compression, boundary_store) -> None:
     config.check_params_supported(sample_rate_hz, config.NUM_CHANNELS,
                                   model_path)
-    if sample_rate_hz != config.INTERNAL_SAMPLE_RATE:
-        raise NotImplementedError(
-            f"sample rate {sample_rate_hz}: the port runs 16 kHz only "
-            f"(the resampler is not ported yet)")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    compute_dtype(mode)  # float and bf16; int8 / fakequant raise
+    if state_compression is not None:
+        raise NotImplementedError(
+            "state_compression: int8 state storage is not ported")
+    if boundary_store is not None:
+        raise NotImplementedError(
+            "boundary_store: fp8 boundary storage is not ported")
+
+
+def _resampler(input_rate: int, target_rate: int, device):
+    """None at 16 kHz, else the polyphase resampler between the rates."""
+    if input_rate == target_rate:
+        return None
+    return Resampler(input_rate, target_rate, device=device)
 
 
 def _max_stages(rvq: ResidualVectorQuantizer, max_bitrate):
@@ -113,8 +130,12 @@ class DecoderEngine:
                  backend: str = "kernel",
                  feature_estimator: str = "zero",
                  max_bitrate: int | None = None,
-                 emit_dtype: str = "float32", device="cpu"):
-        _checked_common(sample_rate_hz, model_path, backend)
+                 emit_dtype: str = "float32", device="cpu",
+                 mode: str = "float",
+                 state_compression: str | None = None,
+                 boundary_store: str | None = None):
+        _checked_common(sample_rate_hz, model_path, backend, mode,
+                        state_compression, boundary_store)
         if emit_dtype not in ("float32", "int16"):
             raise ValueError(
                 f"emit_dtype must be 'float32' or 'int16', got {emit_dtype!r}")
@@ -124,11 +145,15 @@ class DecoderEngine:
                 f"choose from {sorted(_ESTIMATORS)}")
         self.device = torch.device(device)
         self.sample_rate_hz = sample_rate_hz
-        self.hop_samples = INTERNAL_HOP
+        self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self._emit_int16 = emit_dtype == "int16"
-        self.gan = LyraGanModel(model_path, backend=backend, device=device)
+        self.gan = LyraGanModel(model_path, backend=backend, mode=mode,
+                                device=device)
         self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
         self._max_stages = _max_stages(self.rvq, max_bitrate)
+        self._decode_dtype = compute_dtype(mode)
+        self.resampler = _resampler(config.INTERNAL_SAMPLE_RATE,
+                                    sample_rate_hz, device)
         self.cng = ComfortNoiseGenerator(config.INTERNAL_SAMPLE_RATE,
                                          device=device)
         self.noise = NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
@@ -136,7 +161,7 @@ class DecoderEngine:
 
     def init_state(self, batch_size: int, seed: int = 0) -> State:
         b, dev = batch_size, self.device
-        return {
+        state = {
             "gan": self.gan.init_state(b),
             "cng": self.cng.init_state(b, seed=seed),
             "noise": self.noise.init_state(b),
@@ -146,6 +171,9 @@ class DecoderEngine:
             "fade_dir": torch.full((b,), FADE_FROM_CNG, dtype=torch.int32,
                                    device=dev),
         }
+        if self.resampler is not None:
+            state["resampler"] = self.resampler.init_state(b)
+        return state
 
     def reset_rows(self, state: State, mask: torch.Tensor,
                    seed: int = 0) -> State:
@@ -162,11 +190,12 @@ class DecoderEngine:
                   stream's bitrate; ignored where not received).
         received: [B] bool — False means lost (or a DTX empty packet).
 
-        Returns (audio [B, 320] at int16 scale — float32, or int16 with
-        emit_dtype="int16"; is_comfort_noise [B] bool; new_state).
+        Returns (audio [B, hop_samples] at int16 scale — float32, or int16
+        with emit_dtype="int16"; is_comfort_noise [B] bool; new_state).
         """
         received = received.to(device=self.device, dtype=torch.bool)
         lossy = self.rvq.decode(indices.to(self.device),
+                                dtype=self._decode_dtype,
                                 max_stages=self._max_stages)
         est_state = self.estimator.update(state["est"], lossy, received)
 
@@ -221,6 +250,10 @@ class DecoderEngine:
             "fade": fade,
             "fade_dir": fade_dir,
         }
+        if self.resampler is not None:
+            audio, new_state["resampler"] = self.resampler.resample(
+                state["resampler"], audio)
+            audio = dsp_utils.clip_to_int16(audio).float()
         is_comfort_noise = fade == FADE_SAMPLES
         if self._emit_int16:
             audio = audio.to(torch.int16)
@@ -234,24 +267,31 @@ class EncoderEngine:
                  model_path: str = config.DEFAULT_MODEL_PATH,
                  enable_dtx: bool = False, backend: str = "kernel",
                  max_bitrate: int | None = None,
-                 device="cpu"):
-        _checked_common(sample_rate_hz, model_path, backend)
+                 device="cpu", mode: str = "float",
+                 state_compression: str | None = None,
+                 boundary_store: str | None = None):
+        _checked_common(sample_rate_hz, model_path, backend, mode,
+                        state_compression, boundary_store)
         self.device = torch.device(device)
         self.sample_rate_hz = sample_rate_hz
-        self.hop_samples = INTERNAL_HOP
+        self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self.enable_dtx = enable_dtx
         self.soundstream = SoundStreamEncoder(model_path, backend=backend,
-                                              device=device)
+                                              mode=mode, device=device)
         self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
         self._rvq_method = "kernel" if backend == "kernel" else "fast"
         self._max_stages = _max_stages(self.rvq, max_bitrate)
         self.noise = (NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
                       if enable_dtx else None)
+        self.resampler = _resampler(sample_rate_hz,
+                                    config.INTERNAL_SAMPLE_RATE, device)
 
     def init_state(self, batch_size: int) -> State:
         state = {"soundstream": self.soundstream.init_state(batch_size)}
         if self.noise is not None:
             state["noise"] = self.noise.init_state(batch_size)
+        if self.resampler is not None:
+            state["resampler"] = self.resampler.init_state(batch_size)
         return state
 
     def reset_rows(self, state: State, mask: torch.Tensor) -> State:
@@ -259,7 +299,8 @@ class EncoderEngine:
         return mask_tree(mask, self.init_state(mask.shape[0]), state)
 
     def step(self, state: State, audio: torch.Tensor, num_quantizers):
-        """audio [B, 320] at int16 scale; num_quantizers scalar or [B].
+        """audio [B, hop_samples] at int16 scale; num_quantizers scalar
+        or [B].
 
         Returns (indices [B, num_stages] int32, −1 beyond each stream's
         bitrate; is_noise [B] bool; new_state).  A DTX noise hop leaves the
@@ -267,6 +308,10 @@ class EncoderEngine:
         packet)."""
         new_state = dict(state)
         x = audio.to(device=self.device, dtype=torch.float32)
+        if self.resampler is not None:
+            x, new_state["resampler"] = self.resampler.resample(
+                state["resampler"], x)
+            x = dsp_utils.clip_to_int16(x).float()
         if self.noise is not None:
             noise_state = self.noise.receive_hop(state["noise"], x)
             is_noise = self.noise.is_noise(noise_state)

@@ -6,6 +6,7 @@ Unit-float ↔ int16 scaling uses 32768 as the scale, clamps to
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _INT16_SCALE = 32768.0
@@ -25,3 +26,8 @@ def unit_to_int16(values: torch.Tensor) -> torch.Tensor:
 def clip_to_int16(values: torch.Tensor) -> torch.Tensor:
     clipped = torch.clamp(values.float(), _INT16_MIN, _INT16_MAX)
     return torch.trunc(clipped).to(torch.int16)
+
+
+def clip_to_int16_np(values: np.ndarray) -> np.ndarray:
+    clipped = np.clip(np.asarray(values, np.float32), _INT16_MIN, _INT16_MAX)
+    return np.trunc(clipped).astype(np.int16)

@@ -46,6 +46,7 @@ class ResidualVectorQuantizer:
         self.codebooks = torch.tensor(np.asarray(codebooks, np.float32),
                                       device=self.device)  # [S, 16, F]
         self.c2 = (self.codebooks * self.codebooks).sum(-1).contiguous()
+        self._rounded = {}  # dtype → codebooks rounded to it, as float32
         self.num_stages = codebooks.shape[0]
         self.num_codes = codebooks.shape[1]
         self.bits_per_stage = int(np.log2(codebooks.shape[1]))
@@ -98,10 +99,15 @@ class ResidualVectorQuantizer:
         return torch.where(stage_ids < nq[:, None], indices,
                            torch.full_like(indices, -1))
 
-    def decode(self, indices: torch.Tensor,
+    def decode(self, indices: torch.Tensor, dtype: torch.dtype | None = None,
                max_stages: int | None = None) -> torch.Tensor:
         """stage indices [B, S] (−1 or out of range = unused) → features
-        [B, F], as a gather-sum over the stages."""
+        [B, F], as a gather-sum over the stages.
+
+        dtype=torch.bfloat16 gathers bf16-rounded codewords and sums them
+        in float32: the JAX package's one-hot bf16 matmul with float32
+        accumulation (the bf16 engines' decode).  Features are float32
+        either way."""
         s = self.num_stages
         if max_stages is not None:
             s = int(max_stages)
@@ -110,7 +116,12 @@ class ResidualVectorQuantizer:
         idx = indices[:, :s].long()
         used = (idx >= 0) & (idx < self.num_codes)
         stage = torch.arange(s, device=idx.device)[None, :]
-        rows = self.codebooks[stage, idx.clamp(0, self.num_codes - 1)]
+        cbs = self.codebooks
+        if dtype is not None and dtype != torch.float32:
+            if dtype not in self._rounded:
+                self._rounded[dtype] = cbs.to(dtype).float()
+            cbs = self._rounded[dtype]
+        rows = cbs[stage, idx.clamp(0, self.num_codes - 1)]
         return (rows * used[..., None]).sum(dim=1)
 
     def num_bits_to_stages(self, num_bits: int) -> int:

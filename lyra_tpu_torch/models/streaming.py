@@ -7,7 +7,8 @@ of `[B, ...]` tensors (the JAX engine's keys and shapes).
 The backend is chosen by composition: `backend="kernel"` runs the graph
 through FusedStack (the conv-stack kernels on its multi-channel core),
 `backend="plain"` through the executor's torch lowering.  Both take and
-return the same state tree.
+return the same state tree.  `mode` ("float" or "bf16") is the graphs'
+compute dtype on either backend; inputs and outputs stay float32.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ BACKENDS = ("kernel", "plain")
 class _PlainGraph:
     """Executor GraphFn behind FusedStack's `(state, x) → (y, state)` call."""
 
-    def __init__(self, path: str, device):
-        self._graph = load_graph(path, device=device)
+    def __init__(self, path: str, mode: str, device):
+        self._graph = load_graph(path, mode=mode, device=device)
         (self._input_name,) = self._graph.sig_inputs
         (self._output_name,) = self._graph.sig_outputs
 
@@ -53,7 +54,8 @@ class StreamingModel:
     """One stateful streaming graph run by the chosen backend."""
 
     def __init__(self, path: str, backend: str = "kernel",
-                 device="cpu", state_dtype: str | None = None,
+                 mode: str = "float", device="cpu",
+                 state_dtype: str | None = None,
                  boundary_store: str | None = None):
         if state_dtype is not None:
             raise NotImplementedError(
@@ -62,9 +64,9 @@ class StreamingModel:
             raise NotImplementedError(
                 "boundary_store: fp8 boundary storage is not ported")
         if backend == "kernel":
-            self._run = FusedStack(path, device=device)
+            self._run = FusedStack(path, mode=mode, device=device)
         elif backend == "plain":
-            self._run = _PlainGraph(path, device)
+            self._run = _PlainGraph(path, mode, device)
         else:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 

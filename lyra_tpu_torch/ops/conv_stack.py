@@ -6,7 +6,7 @@ Replaces the conv lowerings of the Pallas megakernel
 CUDA sources are ops/csrc/conv_stack.cu; see there for what bounds them on
 the card.
 
-All three take channels-last activations `[B, T, C]` float32 (the graph's
+All three take channels-last activations `[B, T, C]` (the graph's
 `[1, T, 1, C]` with the stream batch in place of 1 and W dropped) and
 weights pre-laid out for the kernels:
 
@@ -14,9 +14,12 @@ weights pre-laid out for the kernels:
     depthwise_conv1d(x, w[K, C], bias[C], dilation)  DEPTHWISE_CONV_2D
     transpose_conv1d(x, w[K, I, O], bias[O], stride, t_out)  TRANSPOSE_CONV
 
-A CUDA tensor launches the kernel (and counts the launch); a CPU tensor
-runs the plain version, which is the executor's torch lowering
-(tflite/executor.py).  Anything else raises.
+Each comes in float32 and bfloat16, chosen by the operands' dtype, which
+must be one of the two and the same for all of them.  The bf16 kernels
+accumulate in float32 and round once on store (the Pallas kernel's bf16
+mode).  A CUDA tensor launches the kernel of its dtype (and counts the
+launch); a CPU tensor runs the plain version, which is the executor's torch
+lowering (tflite/executor.py) in the input's dtype.  Anything else raises.
 """
 
 from __future__ import annotations
@@ -32,23 +35,37 @@ from lyra_tpu_torch.tflite import executor
 
 _SOURCE = "lyra_tpu_torch/ops/csrc/conv_stack.cu"
 _REPLACES = "lyra_tpu/ops/fused_stack.py:488"
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
-CONV1D = cuda_build.KernelCounter("conv1d_fwd", _SOURCE, _REPLACES)
-DEPTHWISE = cuda_build.KernelCounter("depthwise_conv1d_fwd", _SOURCE, _REPLACES)
-TCONV = cuda_build.KernelCounter("transpose_conv1d_fwd", _SOURCE, _REPLACES)
-KERNELS = (CONV1D, DEPTHWISE, TCONV)
+
+def _counters(suffix: str):
+    return tuple(cuda_build.KernelCounter(f"{name}{suffix}", _SOURCE, _REPLACES)
+                 for name in ("conv1d_fwd", "depthwise_conv1d_fwd",
+                              "transpose_conv1d_fwd"))
+
+
+CONV1D, DEPTHWISE, TCONV = _counters("")
+CONV1D_BF16, DEPTHWISE_BF16, TCONV_BF16 = _counters("_bf16")
+KERNELS_F32 = (CONV1D, DEPTHWISE, TCONV)
+KERNELS_BF16 = (CONV1D_BF16, DEPTHWISE_BF16, TCONV_BF16)
+KERNELS = KERNELS_F32 + KERNELS_BF16
+# dtype → (conv1d, depthwise, transpose conv) counters
+BY_DTYPE = {torch.float32: KERNELS_F32, torch.bfloat16: KERNELS_BF16}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("conv_stack.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lyra_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
-    lib.lyra_depthwise_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 6 + [p]
-    lib.lyra_transpose_conv1d_fwd.argtypes = [p, p, p, p] + [i] * 7 + [p]
-    for fn in (lib.lyra_conv1d_fwd, lib.lyra_depthwise_conv1d_fwd,
-               lib.lyra_transpose_conv1d_fwd):
-        fn.restype = ctypes.c_int
+    for suffix in _SUFFIX.values():
+        conv = getattr(lib, f"lyra_conv1d_fwd{suffix}")
+        dw = getattr(lib, f"lyra_depthwise_conv1d_fwd{suffix}")
+        tc = getattr(lib, f"lyra_transpose_conv1d_fwd{suffix}")
+        conv.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        dw.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        tc.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        for fn in (conv, dw, tc):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -58,23 +75,37 @@ def _on_cuda(x: torch.Tensor, *operands: Optional[torch.Tensor]) -> bool:
         return False
     if not x.is_cuda:
         raise NotImplementedError(f"no conv-stack kernel for {x.device}")
+    if x.dtype not in BY_DTYPE:
+        raise ValueError(f"conv-stack kernels take float32 or bfloat16, got "
+                         f"{x.dtype}")
     for t in (x, *operands):
         if t is None:
             continue
-        if t.device != x.device or t.dtype != torch.float32:
+        if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(
-                f"conv-stack kernels take float32 on {x.device}, got "
-                f"{t.dtype} on {t.device}")
+                f"conv-stack kernels take operands of one dtype on one "
+                f"device: {x.dtype} on {x.device}, got {t.dtype} on "
+                f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("conv-stack kernels take contiguous tensors")
     return True
+
+
+def _launch(which: int, x: torch.Tensor, *args) -> None:
+    """Launch kernel `which` (0 conv1d, 1 depthwise, 2 transpose conv) of
+    x's dtype with `args`, check the launch and count it."""
+    counter = BY_DTYPE[x.dtype][which]
+    err = getattr(_lib(), f"lyra_{counter.name}")(
+        *args, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, counter.name)
+    counter.launches += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-# -- plain versions (the executor's lowering, on [B, T, 1, C]) ---------------
+# -- plain versions (the executor's lowering on [B, T, 1, C], in x's dtype) --
 
 def conv1d_plain(x, w, bias, stride: int) -> torch.Tensor:
     groups = x.shape[-1] // w.shape[1]
@@ -109,12 +140,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     if c_in % i_f or o % groups or t_in < k:
         raise ValueError(f"conv1d shapes x {tuple(x.shape)} w {tuple(w.shape)}")
     t_out = (t_in - k) // stride + 1
-    out = torch.empty((b, t_out, o), device=x.device, dtype=torch.float32)
-    err = _lib().lyra_conv1d_fwd(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c_in, t_out, o, k,
-        i_f, stride, groups, cuda_build.stream_handle(x.device))
-    cuda_build.check(err, CONV1D.name)
-    CONV1D.launches += 1
+    out = torch.empty((b, t_out, o), device=x.device, dtype=x.dtype)
+    _launch(0, x, _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c_in,
+            t_out, o, k, i_f, stride, groups)
     return out
 
 
@@ -130,12 +158,9 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     if w.shape[1] != c or t_out < 1:
         raise ValueError(
             f"depthwise shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    out = torch.empty((b, t_out, c), device=x.device, dtype=torch.float32)
-    err = _lib().lyra_depthwise_conv1d_fwd(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c, t_out, k,
-        dilation, cuda_build.stream_handle(x.device))
-    cuda_build.check(err, DEPTHWISE.name)
-    DEPTHWISE.launches += 1
+    out = torch.empty((b, t_out, c), device=x.device, dtype=x.dtype)
+    _launch(1, x, _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, c, t_out,
+            k, dilation)
     return out
 
 
@@ -152,10 +177,7 @@ def transpose_conv1d(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(
             f"transpose conv shapes x {tuple(x.shape)} w {tuple(w.shape)} "
             f"t_out {t_out}")
-    out = torch.empty((b, t_out, o), device=x.device, dtype=torch.float32)
-    err = _lib().lyra_transpose_conv1d_fwd(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, i, t_out, o, k,
-        stride, cuda_build.stream_handle(x.device))
-    cuda_build.check(err, TCONV.name)
-    TCONV.launches += 1
+    out = torch.empty((b, t_out, o), device=x.device, dtype=x.dtype)
+    _launch(2, x, _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, i, t_out,
+            o, k, stride)
     return out

@@ -18,6 +18,11 @@ stack, the Pallas design) is the next step for this kernel.
 
 State trees are the executor's (`[B, *graph_shape]` per variable, the JAX
 engine's keys and shapes), so both backends load each other's state.
+
+`mode="bf16"` (the Pallas kernel's default) runs the executor in bf16 and
+holds the kernel-layout weights in bf16, so the core's convs go to the
+bf16 kernels; the state tree's float leaves are then bf16, as in the JAX
+XLA bf16 engine's tree.  Input and output stay float32.
 """
 
 from __future__ import annotations
@@ -69,8 +74,9 @@ class FusedStack:
     `(state, x) → (y, new_state)` with x and y batch-native in graph shape."""
 
     def __init__(self, path: str, signature: str = "serving_default",
-                 device="cpu"):
-        self.graph = GraphFn(tfl.load(path), signature, device=device)
+                 mode: str = "float", device="cpu"):
+        self.graph = GraphFn(tfl.load(path), signature, mode=mode,
+                             device=device)
         gl = self.graph
         self.device = gl.device
         self.sg = gl.sg
@@ -199,18 +205,19 @@ class FusedStack:
     # -- kernel-layout weights --------------------------------------------------
     def _collect_weights(self) -> None:
         """Per core conv op: its conv-stack kernel call, with the weight in
-        kernel layout on the device."""
-        dev = self.device
+        kernel layout on the device, in the graph's compute dtype."""
+        dev, dtype = self.device, self.graph.dtype
 
         def as_t(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32),
-                                device=dev)
+                                device=dev).to(dtype)
 
         def bias(op, pos):
             if len(op.inputs) > pos and op.inputs[pos] >= 0:
                 return as_t(self._consts[op.inputs[pos]])
             return None
 
+        conv1d_k, depthwise_k, tconv_k = conv_stack.BY_DTYPE[dtype]
         self._convs: Dict[int, ConvLaunch] = {}
         for i in self._core:
             op = self.sg.ops[i]
@@ -229,18 +236,18 @@ class FusedStack:
             if op.name == "CONV_2D":  # [O, K, 1, I_f] -> [K, I_f, O]
                 if opts.get("dilation_h", 1) != 1:
                     raise NotImplementedError("dilated dense conv not in Lyra graphs")
-                call = (conv_stack.CONV1D, conv_stack.conv1d,
+                call = (conv1d_k, conv_stack.conv1d,
                         conv_stack.conv1d_plain,
                         as_t(np.transpose(w[:, :, 0, :], (1, 2, 0))), bias(op, 2),
                         (opts["stride_h"],))
             elif op.name == "DEPTHWISE_CONV_2D":  # [1, K, 1, C] -> [K, C]
                 if opts["stride_h"] != 1:
                     raise NotImplementedError("strided depthwise not in Lyra graphs")
-                call = (conv_stack.DEPTHWISE, conv_stack.depthwise_conv1d,
+                call = (depthwise_k, conv_stack.depthwise_conv1d,
                         conv_stack.depthwise_conv1d_plain, as_t(w[0, :, 0, :]),
                         bias(op, 2), (opts.get("dilation_h", 1),))
             else:  # TRANSPOSE_CONV [O, K, 1, I] -> [K, I, O]
-                call = (conv_stack.TCONV, conv_stack.transpose_conv1d,
+                call = (tconv_k, conv_stack.transpose_conv1d,
                         conv_stack.transpose_conv1d_plain,
                         as_t(np.transpose(w[:, :, 0, :], (1, 2, 0))), bias(op, 3),
                         (opts["stride_h"], self.sg.tensors[op.outputs[0]].shape[1]))
@@ -259,8 +266,8 @@ class FusedStack:
     def __call__(self, state: State, x: torch.Tensor):
         """x: [B, *graph_input_shape[1:]] → ([B, *graph_output_shape[1:]],
         new_state)."""
-        env: Dict[int, torch.Tensor] = {self.input_idx: x}
+        env: Dict[int, torch.Tensor] = {self.input_idx: x.to(self.graph.dtype)}
         new_state = dict(state)
         self.graph.run_ops(self._prologue + self._core + self._epilogue, env,
                            new_state, convs=self._convs)
-        return env[self.output_idx], new_state
+        return env[self.output_idx].float(), new_state

@@ -1,9 +1,10 @@
 """Lower a parsed TFLite graph to a batched PyTorch function with explicit state.
 
-Port of the float mode of lyra_tpu/tflite/executor.py.  The JAX lowering
-builds a single-stream function and lifts it over streams with `vmap`; here
-the lowering is batch-native: every graph tensor's leading batch dim of 1
-carries B streams instead, so one call advances B streams by one hop.
+Port of the float and bf16 modes of lyra_tpu/tflite/executor.py.  The JAX
+lowering builds a single-stream function and lifts it over streams with
+`vmap`; here the lowering is batch-native: every graph tensor's leading
+batch dim of 1 carries B streams instead, so one call advances B streams by
+one hop.
 
     outputs, new_state = graph(state, **inputs)
 
@@ -13,8 +14,12 @@ move between the two packages unchanged (utils/state.py).
 
 The conv lowerings here (`conv2d`, `depthwise_conv2d`, `transpose_conv`) are
 the plain version of the conv-stack kernels (ops/conv_stack.py): those
-kernels' CPU path calls them.  bf16, int8 and fakequant modes and fp8
-boundary storage are refused until they are ported.
+kernels' CPU path calls them.
+
+`mode="bf16"` does what the JAX `GraphLowering` does in that mode: float
+dequantization, then float constants, initial state and float inputs cast
+to bfloat16, every torch op in bfloat16, and float32 outputs.  int8 and
+fakequant modes and fp8 boundary storage are refused until they are ported.
 """
 
 from __future__ import annotations
@@ -175,20 +180,35 @@ def _batch_axis_ok(axis: int, ndim: int) -> int:
     return axis
 
 
+MODES = {"float": torch.float32, "bf16": torch.bfloat16}
+
+
+def compute_dtype(mode: str) -> torch.dtype:
+    """The float dtype a graph computes in under `mode`."""
+    if mode in ("int8", "fakequant"):
+        raise NotImplementedError(
+            f"mode {mode!r}: only float and bf16 modes are ported (int8 and "
+            f"fakequant run in lyra_tpu)")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {sorted(MODES)}")
+    return MODES[mode]
+
+
+def _cast_float(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype) if t.is_floating_point() else t
+
+
 class GraphFn:
     """One lowered TFLite subgraph: batched op interpreter + initial state.
 
-    Constants live as tensors on `device`; conv weights are re-laid to the
-    torch layouts once, here.
+    Constants live as tensors on `device`, float ones in the compute dtype;
+    conv weights are re-laid to the torch layouts once, here.
     """
 
     def __init__(self, mdef: tfl.ModelDef, signature: str = "serving_default",
                  mode: str = "float", device="cpu",
                  boundary_store: Optional[str] = None):
-        if mode != "float":
-            raise NotImplementedError(
-                f"mode {mode!r}: only float mode is ported (bf16, int8 and "
-                f"fakequant run in lyra_tpu)")
+        self.dtype = compute_dtype(mode)
         if boundary_store is not None:
             raise NotImplementedError(
                 "boundary_store: fp8 layer-boundary storage is not ported")
@@ -200,7 +220,8 @@ class GraphFn:
         self.np_consts = fold_consts(self.sg)
         self.init_state_vals = run_init_subgraphs(mdef, self.sg)
         self.consts: Dict[int, torch.Tensor] = {
-            i: torch.as_tensor(np.array(c), device=self.device)
+            i: _cast_float(torch.as_tensor(np.array(c), device=self.device),
+                           self.dtype)
             for i, c in self.np_consts.items()}
         self._var_of_handle: Dict[int, str] = {
             op.outputs[0]: op.options["shared_name"]
@@ -216,22 +237,25 @@ class GraphFn:
             # [1, KH, KW, O] -> [O, 1, KH, KW]; TRANSPOSE_CONV
             # [O, KH, KW, I] -> [I, O, KH, KW].
             perm = (0, 3, 1, 2) if op.name == "CONV_2D" else (3, 0, 1, 2)
-            w = self.consts[op.inputs[1]].float().permute(perm)
+            w = self.consts[op.inputs[1]].permute(perm)
             self._conv_w[op.index] = w.contiguous()
 
     # -- state ------------------------------------------------------------------
     def init_state(self, batch_size: int) -> State:
-        return {k: torch.as_tensor(v, device=self.device).expand(
+        """Initial state over `batch_size` streams; float leaves in the
+        compute dtype, as the JAX lowering's."""
+        return {k: _cast_float(torch.as_tensor(v, device=self.device),
+                               self.dtype).expand(
                     (batch_size,) + v.shape).clone()
                 for k, v in self.init_state_vals.items()}
 
     def __call__(self, state: State, **inputs) -> Tuple[Dict[str, torch.Tensor], State]:
         env: Dict[int, torch.Tensor] = {}
         for name, idx in self.sig_inputs.items():
-            env[idx] = inputs[name]
+            env[idx] = _cast_float(inputs[name], self.dtype)
         new_state = dict(state)
         self.run_ops(range(len(self.sg.ops)), env, new_state)
-        outputs = {name: self.get(env, idx)
+        outputs = {name: _cast_float(self.get(env, idx), torch.float32)
                    for name, idx in self.sig_outputs.items()}
         return outputs, new_state
 
@@ -353,8 +377,8 @@ class GraphFn:
 
 
 def load_graph(path: str, signature: str = "serving_default",
-               device="cpu") -> GraphFn:
-    """Parse `path` and lower `signature` (float mode) to a batched torch
-    function."""
-    return GraphFn(tfl.load(path), signature, device=device)
+               mode: str = "float", device="cpu") -> GraphFn:
+    """Parse `path` and lower `signature` (float or bf16 mode) to a batched
+    torch function."""
+    return GraphFn(tfl.load(path), signature, mode=mode, device=device)
 

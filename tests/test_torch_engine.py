@@ -171,8 +171,8 @@ def test_max_bitrate_and_int16_emit_are_exact():
         assert torch.equal(a.to(torch.int16), a_c) and torch.equal(cn, cn_c)
     with pytest.raises(ValueError):
         EncoderEngine(16000, SMALL, max_bitrate=1234)
-    with pytest.raises(NotImplementedError):
-        DecoderEngine(48000, SMALL)
+    with pytest.raises(ValueError):
+        DecoderEngine(44100, SMALL)
 
 
 def test_reset_rows_matches_jax(jax_engines):

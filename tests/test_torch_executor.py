@@ -139,7 +139,7 @@ def test_conv_wrappers_run_plain_versions_on_cpu():
     assert [k.launches for k in conv_stack.KERNELS] == before
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": "bf16"}, {"mode": "int8"},
+@pytest.mark.parametrize("kwargs", [{"mode": "int8"},
                                     {"mode": "fakequant"},
                                     {"boundary_store": "f8"}])
 def test_unported_modes_are_refused(kwargs):

@@ -2,7 +2,8 @@
 
 A subprocess with LYRA_TPU_PLATFORM unset installs a `sys.meta_path` finder
 that raises on any jax/jaxlib import, then imports lyra_tpu_torch, builds
-both engines on CPU from the small synthetic fixture and runs one tick.
+both engines on CPU from the small synthetic fixture and runs one tick:
+float at 16 kHz, then bf16 at 48 kHz (the resampler and the bf16 paths).
 """
 
 import os
@@ -31,6 +32,7 @@ _CHILD = textwrap.dedent("""
     import lyra_tpu_torch
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler
     from lyra_tpu_torch.utils import state
 
     path = sys.argv[1]
@@ -46,6 +48,23 @@ _CHILD = textwrap.dedent("""
     out, cn, ds = dec.step(ds, back, torch.tensor([True, False]))
     assert out.shape == (2, 320) and bool(torch.isfinite(out).all())
     state.state_to_numpy(ds)
+
+    enc = EncoderEngine(48000, path, mode="bf16")
+    dec = DecoderEngine(48000, path, mode="bf16")
+    es, ds = enc.init_state(2), dec.init_state(2)
+    audio = torch.from_numpy(
+        np.random.default_rng(1).normal(0, 3000, (2, 960)).astype(np.float32))
+    idx, _, es = enc.step(es, audio, 16)
+    out, cn, ds = dec.step(ds, idx, torch.tensor([True, True]))
+    assert out.shape == (2, 960) and bool(torch.isfinite(out).all())
+    assert ds["gan"][next(iter(ds["gan"]))].dtype == torch.bfloat16
+    assert ds["resampler"].shape == (2, 34)
+    state.state_from_numpy(state.state_to_numpy(es))  # bf16 leaves
+    y, _ = Resampler(16000, 8000).resample(torch.zeros(1, 34),
+                                           torch.ones(1, 320))
+    assert y.shape == (1, 160)
+    assert StreamingResampler(8000, 16000).resample(
+        np.zeros(160, np.int16)).shape == (320,)
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("NO_JAX_TICK_OK")
 """)
