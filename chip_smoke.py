@@ -20,7 +20,9 @@ Phases, one line each; any failed check raises and exits nonzero:
               executor and vs the plain f32 one (bar 3e-2 × max|plain|),
               then every bf16 kernel call of one hop at B=1024 vs its
               plain bf16 version (bar 2^-7 × max|ref|, two bf16
-              roundings), timed;
+              roundings), timed per hop in 7 alternating rounds (kernel
+              and plain, eager launches and CUDA-graph replays), with
+              each kernel's FLOP, activation bytes and roofline shares;
   4. K2       the RVQ kernel vs its plain version at B=4096: rows may
               differ only at near-ties, at most 0.1% of rows;
   5. rates    the resampler on the card vs tests/golden/resampler_goldens
@@ -64,6 +66,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
+from functools import partial  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -72,6 +75,8 @@ FULL_FIXTURE = os.path.join(REPO, "tests", "golden", "synthetic_lyra", "full")
 REL_TOL = 1e-5
 BF16_REL_TOL = 3e-2  # whole models and engines in bf16 vs plain
 BF16_CALL_TOL = 2.0 ** -7  # one kernel call: two bf16 roundings
+ROUNDS, ROUND_REPS = 7, 10  # K1-bf16 timing: alternating rounds, calls each
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12  # H100 SXM data sheet
 GOLDEN_TOL = 0.05  # resampler vs goldens, int16 scale (the JAX test's bar)
 BATCH, TICKS = 1024, 50  # the main path's streams and ticks
 RATE_BF16 = 48000  # the bf16 main path's fleet rate
@@ -188,7 +193,7 @@ def _calls(stats, kernels) -> str:
         f"{stats[k.name]['max_abs_err']:.3e}" for k in kernels)
 
 
-def phase_k1_bf16(path, batch, dev, stats):
+def phase_k1_bf16(path, batch, dev, stats, gpu):
     import torch
 
     from lyra_tpu_torch.ops import conv_stack
@@ -196,7 +201,7 @@ def phase_k1_bf16(path, batch, dev, stats):
     from lyra_tpu_torch.tflite.executor import load_graph
 
     rng = np.random.default_rng(4)
-    lines = []
+    lines, calls = [], []
     for name, shape, scale in MODELS:
         p = os.path.join(path, f"{name}.tflite")
         fused = FusedStack(p, mode="bf16", device=dev)
@@ -236,13 +241,104 @@ def phase_k1_bf16(path, batch, dev, stats):
                   f"abs err {abs_err} > {tol}")
             s = stats[kernel.name]
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-            s["ms"] += cuda_ms(lambda: fn(x, w, bias, *extra))
-            s["plain_ms"] += cuda_ms(lambda: plain_fn(x, w, bias, *extra))
             s["calls"] += 1
+            calls.append((kernel.name, partial(fn, x, w, bias, *extra),
+                          partial(plain_fn, x, w, bias, *extra),
+                          _work(kernel.name, x.shape, w, extra, ref.shape)))
     print(f"K1-bf16 vs plain: ok, max rel err {'; '.join(lines)} (B=64, 20 "
-          f"frames); per-hop bf16 kernel calls at B={batch} (bar "
-          f"{BF16_CALL_TOL} x max|ref|): "
-          f"{_calls(stats, conv_stack.KERNELS_BF16)}")
+          f"frames); per-hop bf16 kernel calls at B={batch} within "
+          f"{BF16_CALL_TOL} x max|ref|: "
+          + ", ".join(f"{k.name} {stats[k.name]['calls']} calls max abs err "
+                      f"{stats[k.name]['max_abs_err']:.3e}"
+                      for k in conv_stack.KERNELS_BF16))
+    _time_rounds(calls, conv_stack.KERNELS_BF16, batch, stats, gpu)
+
+
+def _work(name, x_shape, w, extra, out_shape):
+    """(FLOP, activation bytes in + out) of one bf16 conv call."""
+    b, t_in, _ = x_shape
+    nbytes = 2 * (int(np.prod(x_shape)) + int(np.prod(out_shape)))
+    t_out = out_shape[1]
+    if name.startswith("depthwise"):
+        k, c = w.shape
+        return 2 * b * t_out * c * k, nbytes
+    k, i, o = w.shape
+    if name.startswith("transpose"):  # only the taps that land
+        s = extra[0]
+        taps = sum(1 for t in range(t_out)
+                   for kk in range(t % s, min(k, t + 1), s)
+                   if (t - kk) // s < t_in)
+        return 2 * b * taps * i * o, nbytes
+    return 2 * b * t_out * k * i * o, nbytes
+
+
+def _graph(fn, reps):
+    """A CUDA graph of `reps` calls of fn: its replay times the device work
+    without the host's launch gaps."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return g
+
+
+def _time_rounds(calls, kernels, batch, stats, gpu):
+    """Per-hop ms of each kernel and of its plain version, summed over the
+    hop's `calls` (name, kernel fn, plain fn, work), in ROUNDS rounds that
+    alternate which goes first; each as eager launches (as the tick makes
+    them) and as CUDA-graph replays (device time, no launch gaps).  Sets
+    stats[name]["ms"/"plain_ms"] to the eager medians."""
+    timers = []  # per call: path → how → () → ms of one call
+    for _, fn, plain_fn, _ in calls:
+        timers.append({})
+        for path, f in (("kernel", fn), ("plain", plain_fn)):
+            g = _graph(f, ROUND_REPS)
+            timers[-1][path] = {
+                "eager": partial(cuda_ms, f, ROUND_REPS, 1),
+                "graph": lambda g=g: cuda_ms(g.replay, 1, 0) / ROUND_REPS}
+    names = [k.name for k in kernels]
+    ms = {(n, path, how): [] for n in names for path in ("kernel", "plain")
+          for how in ("eager", "graph")}
+    for r in range(ROUNDS):
+        for path in ("kernel", "plain")[::1 if r % 2 == 0 else -1]:
+            for how in ("eager", "graph"):
+                tot = dict.fromkeys(names, 0.0)
+                for (name, *_), timer in zip(calls, timers):
+                    tot[name] += timer[path][how]()
+                for n in names:
+                    ms[(n, path, how)].append(tot[n])
+    del timers
+    out = []
+    for n in names:
+        flop = sum(c[3][0] for c in calls if c[0] == n)
+        nbytes = sum(c[3][1] for c in calls if c[0] == n)
+        parts = []
+        for how in ("eager", "graph"):
+            k, p = ms[(n, "kernel", how)], ms[(n, "plain", how)]
+            won = sum(a < b for a, b in zip(k, p))
+            km = float(np.median(k))
+            parts.append(
+                f"{how} kernel {km:.4f} ms ({min(k):.4f}-{max(k):.4f}) vs "
+                f"plain {np.median(p):.4f} ms ({min(p):.4f}-{max(p):.4f}), "
+                f"kernel faster in {won} of {ROUNDS}, "
+                f"{flop / (km * 1e-3) / PEAK_BF16_FLOPS:.2%} of bf16 peak, "
+                f"{nbytes / (km * 1e-3) / PEAK_HBM_BYTES:.2%} of HBM rate")
+        stats[n]["ms"] = float(np.median(ms[(n, "kernel", "eager")]))
+        stats[n]["plain_ms"] = float(np.median(ms[(n, "plain", "eager")]))
+        out.append(f"{n} ({stats[n]['calls']} calls, {flop / 1e9:.3f} GFLOP, "
+                   f"{nbytes / 1e6:.1f} MB activations in+out): "
+                   + "; ".join(parts))
+    print(f"K1-bf16 timing: per hop at B={batch}, medians (min-max) of "
+          f"{ROUNDS} alternating rounds of {ROUND_REPS} calls each, shares "
+          f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s [{gpu}]: " + " | ".join(out))
 
 
 def rel_err(got, ref) -> float:
@@ -618,7 +714,7 @@ def main(argv=None) -> int:
     stats = {k.name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "calls": 0} for k in kernels}
     phase_k1(path, BATCH, dev, stats)
-    phase_k1_bf16(path, BATCH, dev, stats)
+    phase_k1_bf16(path, BATCH, dev, stats, gpu)
     phase_k2(ResidualVectorQuantizer.from_model_path(path, dev), BATCH, dev,
              stats)
     phase_rates(BATCH, dev)

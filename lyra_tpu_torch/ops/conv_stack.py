@@ -17,16 +17,19 @@ weights pre-laid out for the kernels:
 Each comes in float32 and bfloat16, chosen by the operands' dtype, which
 must be one of the two and the same for all of them.  The bf16 kernels
 accumulate in float32 and round once on store (the Pallas kernel's bf16
-mode).  A CUDA tensor launches the kernel of its dtype (and counts the
-launch); a CPU tensor runs the plain version, which is the executor's torch
-lowering (tflite/executor.py) in the input's dtype.  Anything else raises.
+mode); the bf16 conv1d and transpose conv run as tensor-core implicit
+GEMMs whose tile the launcher picks per call (`gemm_tile`, `conv1d_plan`,
+`transpose_conv1d_plan` below describe that choice).  A CUDA tensor
+launches the kernel of its dtype (and counts the launch); a CPU tensor runs
+the plain version, which is the executor's torch lowering
+(tflite/executor.py) in the input's dtype.  Anything else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,6 +69,8 @@ def _lib() -> ctypes.CDLL:
         tc.argtypes = [p, p, p, p] + [i] * 7 + [p]
         for fn in (conv, dw, tc):
             fn.restype = ctypes.c_int
+    lib.lyra_conv_gemm_tile.argtypes = [i, i, i]
+    lib.lyra_conv_gemm_tile.restype = ctypes.c_int
     return lib
 
 
@@ -103,6 +108,70 @@ def _launch(which: int, x: torch.Tensor, *args) -> None:
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+# -- tile plan of the bf16 implicit GEMMs --------------------------------------
+# The launchers in conv_stack.cu choose the tile themselves
+# (lyra_conv_gemm_tile); this is the same rule in Python, for the tests
+# (tests/test_torch_cuda.py holds the two equal on the card).
+
+GEMM_TILES = ((128, 64), (64, 64), (64, 32), (32, 32), (64, 16))  # (BM, BN)
+GEMM_BK, GEMM_STAGES, GEMM_PAD = 32, 3, 8
+GEMM_TARGET_BLOCKS = 132  # one wave: a block per SM of an H100 SXM
+
+
+class GemmPlan(NamedTuple):
+    dims: Tuple[int, int, int]  # GEMM rows, columns, groups or phases
+    tile: int  # index into GEMM_TILES
+    block: Tuple[int, int]  # (BM, BN) outputs per block
+    grid: Tuple[int, int, int]  # (row tiles, column tiles, groups or phases)
+    smem_bytes: int
+    # 16-byte cp.async loads and stores, else scalar fills of the same
+    # tiles; the launcher also needs x, w and out 16-byte aligned for it.
+    vec: bool
+
+
+def gemm_tile(m: int, n: int, z: int) -> int:
+    """Index into GEMM_TILES for a GEMM of m rows, n columns and z groups
+    or phases: of the candidates for its width (n > 32, > 16, ≤ 16), the
+    widest that still puts GEMM_TARGET_BLOCKS blocks on the card, else the
+    narrowest."""
+    cands = (0, 1, 3) if n > 32 else (2, 3) if n > 16 else (4,)
+    for c in cands:
+        bm, bn = GEMM_TILES[c]
+        if -(-m // bm) * -(-n // bn) * z >= GEMM_TARGET_BLOCKS:
+            return c
+    return cands[-1]
+
+
+def _plan(m: int, n: int, z: int, vec: bool) -> GemmPlan:
+    tile = gemm_tile(m, n, z)
+    bm, bn = GEMM_TILES[tile]
+    smem = GEMM_STAGES * (bm * (GEMM_BK + GEMM_PAD)
+                          + GEMM_BK * (bn + GEMM_PAD)) * 2
+    return GemmPlan((m, n, z), tile, (bm, bn), (-(-m // bm), -(-n // bn), z),
+                    smem, vec)
+
+
+def conv1d_plan(x_shape, w_shape, stride: int) -> GemmPlan:
+    """conv1d_fwd_bf16 on x [B, T_in, C_in], w [K, I_f, O]: rows (b, t),
+    columns O / groups, one grid layer per group."""
+    b, t_in, c_in = x_shape
+    k, i_f, o = w_shape
+    groups = c_in // i_f
+    t_out = (t_in - k) // stride + 1
+    n = o // groups
+    return _plan(b * t_out, n, groups, i_f % 8 == 0 and n % 8 == 0)
+
+
+def transpose_conv1d_plan(x_shape, w_shape, stride: int,
+                          t_out: int) -> GemmPlan:
+    """transpose_conv1d_fwd_bf16 on x [B, T_in, I], w [K, I, O]: one grid
+    layer per output phase p < stride, rows (b, j) for t = j·stride + p
+    (phase 0 has the most), columns O."""
+    b, i, o = x_shape[0], x_shape[2], w_shape[2]
+    return _plan(b * -(-t_out // stride), o, stride,
+                 i % 8 == 0 and o % 8 == 0)
 
 
 # -- plain versions (the executor's lowering on [B, T, 1, C], in x's dtype) --

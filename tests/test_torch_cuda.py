@@ -31,6 +31,42 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "golden",
                        "resampler_goldens.npz")
 BF16_BAR = 2.0 ** -7  # two bf16 roundings: the kernel's and cuDNN's
 
+# Every distinct conv1d and transpose-conv call of one hop of the full-width
+# fixture (FusedStack(...).conv_launches() on tests/golden/synthetic_lyra/
+# full; tests/test_torch_conv_gemm.py checks these lists against it).
+# conv1d: (T_in, C_in, K, I_f, O, stride), SoundStream then LyraGAN.
+FULL_CONV1D = [
+    (40, 64, 1, 64, 64, 1), (40, 64, 1, 16, 64, 1), (45, 64, 10, 64, 128, 5),
+    (8, 128, 1, 128, 128, 1), (8, 128, 1, 32, 128, 1),
+    (10, 128, 4, 128, 256, 2), (4, 256, 1, 256, 256, 1),
+    (4, 256, 1, 64, 256, 1), (6, 256, 4, 256, 512, 2),
+    (4, 512, 4, 512, 64, 2),
+    (3, 64, 3, 64, 256, 1), (1, 256, 1, 256, 256, 1), (1, 256, 1, 64, 256, 1),
+    (4, 128, 3, 128, 128, 1), (2, 128, 1, 128, 128, 1),
+    (2, 128, 1, 32, 128, 1), (4, 64, 1, 64, 64, 1), (4, 64, 1, 16, 64, 1),
+    (84, 64, 5, 64, 64, 1),
+]
+# transpose conv: (T_in, I, K, O, stride, t_out), all LyraGAN.
+FULL_TCONV = [(2, 128, 4, 128, 2, 6), (3, 64, 4, 64, 2, 8),
+              (5, 64, 4, 64, 2, 12), (9, 64, 10, 64, 5, 50),
+              (41, 64, 4, 64, 2, 84)]
+# Shapes the 16-byte path does not take, or that leave ragged tiles.
+RAGGED_CONV1D = [
+    (40, 8, 1, 2, 8, 1),  # the small fixture's I_f = 2, O/groups = 2
+    (23, 64, 4, 16, 48, 1),  # O/groups = 12
+    (23, 64, 4, 64, 48, 2),
+    (9, 3, 3, 3, 5, 1),  # K·I_f = 9 < 16, odd widths
+    (37, 24, 2, 24, 40, 1),  # M = 3·36 rows, a multiple of no tile
+    (45, 8, 10, 8, 16, 5),  # s = 5, K = 10
+]
+RAGGED_TCONV = [
+    (9, 16, 10, 24, 5, 50), (9, 16, 10, 24, 5, 43),  # s = 5, K = 10; cropped
+    (7, 16, 5, 24, 2, 17), (7, 16, 5, 24, 2, 12),  # s ∤ K; cropped
+    (9, 16, 52, 24, 4, 70),  # K = 52, s = 4, cropped
+    (3, 6, 4, 10, 2, 7),  # I and O not multiples of 8
+    (4, 8, 1, 8, 2, 7),  # K < s: phase 1 has no taps (bias only)
+]
+
 
 @pytest.fixture
 def cuda():
@@ -225,3 +261,64 @@ def test_bf16_engines_tick_at_48k_on_card(cuda):
     assert out.shape == (16, 960) and bool(torch.isfinite(out).all())
     after = [k.launches for k in conv_stack.KERNELS_BF16]
     assert all(a > b for a, b in zip(after, before))
+
+
+def _conv_operands(rng, batch, t_in, c_in, k, i_f, o, dev):
+    x = _bf16(rng.normal(size=(batch, t_in, c_in)), dev)
+    w = _bf16(rng.normal(0.0, (k * i_f) ** -0.5, (k, i_f, o)), dev)
+    return x, w, _bf16(rng.normal(size=(o,)), dev)
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_CONV1D + RAGGED_CONV1D)
+def test_conv1d_bf16_gemm_matches_plain(cuda, shape, batch):
+    t_in, c_in, k, i_f, o, stride = shape
+    x, w, b = _conv_operands(np.random.default_rng(t_in * k + o), batch,
+                             t_in, c_in, k, i_f, o, cuda)
+    _close_bf16(conv_stack.conv1d(x, w, b, stride),
+                conv_stack.conv1d_plain(x, w, b, stride))
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_TCONV + RAGGED_TCONV)
+def test_transpose_conv_bf16_gemm_matches_plain(cuda, shape, batch):
+    t_in, i, k, o, stride, t_out = shape
+    x, w, b = _conv_operands(np.random.default_rng(t_in * k + o), batch,
+                             t_in, i, k, i, o, cuda)
+    _close_bf16(conv_stack.transpose_conv1d(x, w, b, stride, t_out),
+                conv_stack.transpose_conv1d_plain(x, w, b, stride, t_out))
+
+
+def test_bf16_gemm_kernels_are_deterministic(cuda):
+    rng = np.random.default_rng(7)
+    x, w, b = _conv_operands(rng, 1024, 84, 64, 5, 64, 64, cuda)
+    assert torch.equal(conv_stack.conv1d(x, w, b, 1),
+                       conv_stack.conv1d(x, w, b, 1))
+    x, w, b = _conv_operands(rng, 1024, 9, 64, 10, 64, 64, cuda)
+    assert torch.equal(conv_stack.transpose_conv1d(x, w, b, 5, 50),
+                       conv_stack.transpose_conv1d(x, w, b, 5, 50))
+
+
+def test_bf16_gemm_launch_counters(cuda):
+    x, w, b = _conv_operands(np.random.default_rng(8), 4, 8, 32, 3, 32, 16,
+                             cuda)
+    counters = (conv_stack.CONV1D_BF16, conv_stack.TCONV_BF16,
+                *conv_stack.KERNELS_F32)
+    before = [k.launches for k in counters]
+    conv_stack.conv1d(x, w, b, 1)
+    assert [k.launches for k in counters] == [before[0] + 1, *before[1:]]
+    conv_stack.transpose_conv1d(x, w, b, 2, 17)  # w [K, I, O] = [3, 32, 16]
+    assert [k.launches for k in counters] == [before[0] + 1, before[1] + 1,
+                                              *before[2:]]
+
+
+def test_launcher_tile_matches_planner(cuda):
+    lib = conv_stack._lib()
+    for batch in (1, 64, 1024):
+        plans = [conv_stack.conv1d_plan((batch, t_in, c_in), (k, i_f, o), s)
+                 for t_in, c_in, k, i_f, o, s in FULL_CONV1D + RAGGED_CONV1D]
+        plans += [conv_stack.transpose_conv1d_plan((batch, t_in, i), (k, i, o),
+                                                   s, t_out)
+                  for t_in, i, k, o, s, t_out in FULL_TCONV + RAGGED_TCONV]
+        for plan in plans:
+            assert lib.lyra_conv_gemm_tile(*plan.dims) == plan.tile, plan
