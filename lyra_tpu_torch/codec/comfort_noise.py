@@ -19,8 +19,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
 from lyra_tpu_torch.dsp import melspec
+from lyra_tpu_torch.utils.device import resolve
 
 State = Dict[str, torch.Tensor]
 
@@ -47,8 +48,8 @@ def random_phases(ctr: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 class ComfortNoiseGenerator:
     def __init__(self, sample_rate_hz: int,
-                 num_mel_bins: int = config.NUM_MEL_BINS, device="cpu"):
-        self.device = torch.device(device)
+                 num_mel_bins: int = config.NUM_MEL_BINS, device=None):
+        self.device = resolve(device)
         self.cfg = melspec.MelConfig.for_rate(sample_rate_hz, num_mel_bins)
         a = melspec.mel_weight_matrix(self.cfg.num_fft_bins, sample_rate_hz,
                                       num_mel_bins)  # [bins, mels]

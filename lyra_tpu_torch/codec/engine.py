@@ -23,6 +23,10 @@ to bf16).  `sample_rate_hz` is any of `config.SUPPORTED_SAMPLE_RATES`: the
 codec runs at 16 kHz and a `"resampler"` state leaf carries the
 polyphase filter's history at the stream's rate, as in the JAX engines.
 
+Both engines run on the card unless `device=` names another device; without
+a card the default raises (utils/device.py), so CPU callers pass
+`device="cpu"`.
+
 Differences from the JAX engines: int8 and fakequant modes, int8 state
 storage and fp8 boundaries are not ported and are refused; comfort noise
 is always synthesized (the JAX engine skips it with a `lax.cond` when no
@@ -37,7 +41,7 @@ from typing import Any, Dict
 
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
 from lyra_tpu_torch.codec.comfort_noise import ComfortNoiseGenerator
 from lyra_tpu_torch.codec.feature_estimator import (
     DecayingFeatureEstimator,
@@ -55,6 +59,7 @@ from lyra_tpu_torch.models.streaming import (
     mask_tree,
 )
 from lyra_tpu_torch.tflite.executor import compute_dtype
+from lyra_tpu_torch.utils.device import resolve
 
 State = Dict[str, Any]
 
@@ -130,7 +135,7 @@ class DecoderEngine:
                  backend: str = "kernel",
                  feature_estimator: str = "zero",
                  max_bitrate: int | None = None,
-                 emit_dtype: str = "float32", device="cpu",
+                 emit_dtype: str = "float32", device=None,
                  mode: str = "float",
                  state_compression: str | None = None,
                  boundary_store: str | None = None):
@@ -143,7 +148,7 @@ class DecoderEngine:
             raise ValueError(
                 f"unknown feature_estimator {feature_estimator!r}; "
                 f"choose from {sorted(_ESTIMATORS)}")
-        self.device = torch.device(device)
+        self.device = device = resolve(device)
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self._emit_int16 = emit_dtype == "int16"
@@ -267,12 +272,12 @@ class EncoderEngine:
                  model_path: str = config.DEFAULT_MODEL_PATH,
                  enable_dtx: bool = False, backend: str = "kernel",
                  max_bitrate: int | None = None,
-                 device="cpu", mode: str = "float",
+                 device=None, mode: str = "float",
                  state_compression: str | None = None,
                  boundary_store: str | None = None):
         _checked_common(sample_rate_hz, model_path, backend, mode,
                         state_compression, boundary_store)
-        self.device = torch.device(device)
+        self.device = device = resolve(device)
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self.enable_dtx = enable_dtx

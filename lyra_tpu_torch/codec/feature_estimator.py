@@ -8,15 +8,16 @@ from __future__ import annotations
 
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
+from lyra_tpu_torch.utils.device import resolve
 
 
 class ZeroFeatureEstimator:
     """Estimate() == zeros; Update() is ignored (the reference's estimator)."""
 
-    def __init__(self, num_features: int = config.NUM_FEATURES, device="cpu"):
+    def __init__(self, num_features: int = config.NUM_FEATURES, device=None):
         self.num_features = num_features
-        self.device = torch.device(device)
+        self.device = resolve(device)
 
     def init_state(self, batch_size: int) -> torch.Tensor:
         return torch.zeros((batch_size, self.num_features),
@@ -42,7 +43,7 @@ class DecayingFeatureEstimator(ZeroFeatureEstimator):
     """Geometrically fades the last received features during concealment."""
 
     def __init__(self, decay: float = 0.6,
-                 num_features: int = config.NUM_FEATURES, device="cpu"):
+                 num_features: int = config.NUM_FEATURES, device=None):
         super().__init__(num_features, device)
         self.decay = float(decay)
 

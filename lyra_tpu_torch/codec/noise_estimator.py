@@ -14,8 +14,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
 from lyra_tpu_torch.dsp import melspec
+from lyra_tpu_torch.utils.device import resolve
 
 _POW_DIFF = 0.3
 _BOUND_FACTOR = 0.9
@@ -28,12 +29,12 @@ State = Dict[str, torch.Tensor]
 
 class NoiseEstimator:
     def __init__(self, sample_rate_hz: int,
-                 num_features: int = config.NUM_MEL_BINS, device="cpu"):
+                 num_features: int = config.NUM_MEL_BINS, device=None):
         hop = config.num_samples_per_hop(sample_rate_hz)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.num_features = num_features
         self.cfg = melspec.MelConfig.for_rate(sample_rate_hz, num_features)
-        self._mel = melspec.LogMelExtractor(self.cfg, device=device)
+        self._mel = melspec.LogMelExtractor(self.cfg, device=self.device)
         secs_per_hop = hop / sample_rate_hz
         self.num_hops_per_update = int(round(_UPDATE_TIME_SECS / secs_per_hop))
         self.max_smoothing = 0.5 ** (secs_per_hop / _MAX_SMOOTHING_HALFLIFE_SECS)

@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
+from lyra_tpu_torch.utils.device import resolve
 
 LOG_FLOOR = 500.0
 NORM = 10.0
@@ -125,9 +126,9 @@ def num_used_fft_bins(weights: np.ndarray, num_fft_bins: int) -> int:
 class LogMelExtractor:
     """Batched f32 log-mel over [num_streams, hop] frames on `device`."""
 
-    def __init__(self, cfg: MelConfig, device="cpu"):
+    def __init__(self, cfg: MelConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         mel = mel_weight_matrix(cfg.num_fft_bins, cfg.sample_rate,
                                 cfg.num_mel_bins).astype(np.float32)
         used = num_used_fft_bins(mel, cfg.num_fft_bins)

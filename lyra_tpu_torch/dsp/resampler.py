@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from lyra_tpu_torch.dsp import utils
+from lyra_tpu_torch.utils.device import resolve
 
 KERNEL_RADIUS_INPUT_SAMPLES = 17
 CUTOFF_PROPORTION = 0.9
@@ -62,7 +63,7 @@ class Resampler:
     (zeros = fully primed reset), the JAX package's state leaf.
     """
 
-    def __init__(self, input_rate: int, target_rate: int, device="cpu"):
+    def __init__(self, input_rate: int, target_rate: int, device=None):
         if input_rate <= 0 or target_rate <= 0:
             raise ValueError("rates must be positive")
         self.input_rate = input_rate
@@ -72,7 +73,7 @@ class Resampler:
         self._taps = design_polyphase_taps(self.up, self.down)  # [L, K]
         self.radius = KERNEL_RADIUS_INPUT_SAMPLES
         self._hist = 2 * self.radius
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.taps = torch.tensor(self._taps, device=self.device)
 
     @property
@@ -154,7 +155,7 @@ class StreamingResampler:
     int16 in and out with clipping, carried FIR state, primed `reset`."""
 
     def __init__(self, input_rate: int, target_rate: int):
-        self._r = Resampler(input_rate, target_rate)
+        self._r = Resampler(input_rate, target_rate, device="cpu")  # numpy only
         self._state = np.zeros(self._r._hist, np.float32)
 
     def reset(self):

@@ -19,9 +19,10 @@ import os
 import numpy as np
 import torch
 
-from lyra_tpu import config
-from lyra_tpu.tflite import model as tfl
+from lyra_tpu_torch import config
 from lyra_tpu_torch.ops import rvq_kernel
+from lyra_tpu_torch.tflite import model as tfl
+from lyra_tpu_torch.utils.device import resolve
 
 
 def extract_codebooks(quantizer_path: str) -> np.ndarray:
@@ -41,8 +42,8 @@ def extract_codebooks(quantizer_path: str) -> np.ndarray:
 class ResidualVectorQuantizer:
     """Batched RVQ over `[num_streams, 64]` feature frames on `device`."""
 
-    def __init__(self, codebooks: np.ndarray, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, codebooks: np.ndarray, device=None):
+        self.device = resolve(device)
         self.codebooks = torch.tensor(np.asarray(codebooks, np.float32),
                                       device=self.device)  # [S, 16, F]
         self.c2 = (self.codebooks * self.codebooks).sum(-1).contiguous()
@@ -53,7 +54,7 @@ class ResidualVectorQuantizer:
 
     @classmethod
     def from_model_path(cls, model_path: str,
-                        device="cpu") -> "ResidualVectorQuantizer":
+                        device=None) -> "ResidualVectorQuantizer":
         return cls(extract_codebooks(
             os.path.join(model_path, "quantizer.tflite")), device=device)
 

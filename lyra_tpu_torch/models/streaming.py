@@ -54,7 +54,7 @@ class StreamingModel:
     """One stateful streaming graph run by the chosen backend."""
 
     def __init__(self, path: str, backend: str = "kernel",
-                 mode: str = "float", device="cpu",
+                 mode: str = "float", device=None,
                  state_dtype: str | None = None,
                  boundary_store: str | None = None):
         if state_dtype is not None:

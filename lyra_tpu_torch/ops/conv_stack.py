@@ -17,8 +17,9 @@ weights pre-laid out for the kernels:
 Each comes in float32 and bfloat16, chosen by the operands' dtype, which
 must be one of the two and the same for all of them.  The bf16 kernels
 accumulate in float32 and round once on store (the Pallas kernel's bf16
-mode); the bf16 conv1d and transpose conv run as tensor-core implicit
-GEMMs whose tile the launcher picks per call (`gemm_tile`, `conv1d_plan`,
+mode).  conv1d and the transpose conv run as implicit GEMMs in both
+dtypes — on the tensor cores in bf16, as register-tiled FFMA in f32 —
+whose tile the launcher picks per call (`gemm_tile`, `conv1d_plan`,
 `transpose_conv1d_plan` below describe that choice).  A CUDA tensor
 launches the kernel of its dtype (and counts the launch); a CPU tensor runs
 the plain version, which is the executor's torch lowering
@@ -110,13 +111,13 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-# -- tile plan of the bf16 implicit GEMMs --------------------------------------
+# -- tile plan of the implicit GEMMs -------------------------------------------
 # The launchers in conv_stack.cu choose the tile themselves
-# (lyra_conv_gemm_tile); this is the same rule in Python, for the tests
-# (tests/test_torch_cuda.py holds the two equal on the card).
+# (lyra_conv_gemm_tile, one rule for both element types); this is the same
+# rule in Python, for the tests (tests/test_torch_cuda.py holds the two
+# equal on the card).
 
 GEMM_TILES = ((128, 64), (64, 64), (64, 32), (32, 32), (64, 16))  # (BM, BN)
-GEMM_BK, GEMM_STAGES, GEMM_PAD = 32, 3, 8
 GEMM_TARGET_BLOCKS = 132  # one wave: a block per SM of an H100 SXM
 
 
@@ -125,7 +126,6 @@ class GemmPlan(NamedTuple):
     tile: int  # index into GEMM_TILES
     block: Tuple[int, int]  # (BM, BN) outputs per block
     grid: Tuple[int, int, int]  # (row tiles, column tiles, groups or phases)
-    smem_bytes: int
     # 16-byte cp.async loads and stores, else scalar fills of the same
     # tiles; the launcher also needs x, w and out 16-byte aligned for it.
     vec: bool
@@ -144,34 +144,42 @@ def gemm_tile(m: int, n: int, z: int) -> int:
     return cands[-1]
 
 
+def _chunk(dtype: torch.dtype) -> int:
+    """Elements of `dtype` in one 16-byte chunk (8 bf16 or 4 floats)."""
+    return 16 // dtype.itemsize
+
+
 def _plan(m: int, n: int, z: int, vec: bool) -> GemmPlan:
     tile = gemm_tile(m, n, z)
     bm, bn = GEMM_TILES[tile]
-    smem = GEMM_STAGES * (bm * (GEMM_BK + GEMM_PAD)
-                          + GEMM_BK * (bn + GEMM_PAD)) * 2
     return GemmPlan((m, n, z), tile, (bm, bn), (-(-m // bm), -(-n // bn), z),
-                    smem, vec)
+                    vec)
 
 
-def conv1d_plan(x_shape, w_shape, stride: int) -> GemmPlan:
-    """conv1d_fwd_bf16 on x [B, T_in, C_in], w [K, I_f, O]: rows (b, t),
-    columns O / groups, one grid layer per group."""
+def conv1d_plan(x_shape, w_shape, stride: int, *,
+                dtype: torch.dtype) -> GemmPlan:
+    """conv1d_fwd (f32) or conv1d_fwd_bf16 on x [B, T_in, C_in],
+    w [K, I_f, O]: rows (b, t), columns O / groups, one grid layer per
+    group."""
     b, t_in, c_in = x_shape
     k, i_f, o = w_shape
     groups = c_in // i_f
     t_out = (t_in - k) // stride + 1
     n = o // groups
-    return _plan(b * t_out, n, groups, i_f % 8 == 0 and n % 8 == 0)
+    ch = _chunk(dtype)
+    return _plan(b * t_out, n, groups, i_f % ch == 0 and n % ch == 0)
 
 
-def transpose_conv1d_plan(x_shape, w_shape, stride: int,
-                          t_out: int) -> GemmPlan:
-    """transpose_conv1d_fwd_bf16 on x [B, T_in, I], w [K, I, O]: one grid
-    layer per output phase p < stride, rows (b, j) for t = j·stride + p
-    (phase 0 has the most), columns O."""
+def transpose_conv1d_plan(x_shape, w_shape, stride: int, t_out: int, *,
+                          dtype: torch.dtype) -> GemmPlan:
+    """transpose_conv1d_fwd (f32) or transpose_conv1d_fwd_bf16 on
+    x [B, T_in, I], w [K, I, O]: one grid layer per output phase
+    p < stride, rows (b, j) for t = j·stride + p (phase 0 has the most),
+    columns O."""
     b, i, o = x_shape[0], x_shape[2], w_shape[2]
+    ch = _chunk(dtype)
     return _plan(b * -(-t_out // stride), o, stride,
-                 i % 8 == 0 and o % 8 == 0)
+                 i % ch == 0 and o % ch == 0)
 
 
 # -- plain versions (the executor's lowering on [B, T, 1, C], in x's dtype) --

@@ -18,23 +18,30 @@
 // Pallas _depthwise sums its K taps in bf16 (fused_stack.py:742-745); this
 // depthwise kernel sums them in f32, which is at least as exact.
 //
-// f32 kernels and the depthwise kernels: one output element per thread with
-// f32 FMAs; consecutive threads take consecutive output channels, so weight
-// reads ([K, I, O] layout, O fastest) coalesce and the input row is a
-// warp-wide broadcast.  Weights stay resident in the 50 MB L2 across the
-// batch.
+// Depthwise kernels: one output element per thread with f32 FMAs;
+// consecutive threads take consecutive channels, so weight reads coalesce.
+// They are bound by bytes (K ≤ 3 taps per output).
 //
-// bf16 conv1d and transpose conv: tensor-core implicit GEMMs.  The scalar
-// design above ran them bound by instruction throughput, not by bytes or FLOPs:
-// every FMA cost two 2-byte loads and two bf16→f32 conversions plus index
-// arithmetic, and nothing was reused (each of the B·T_out·O threads re-read
-// its whole K·I_f weight column and input window).  Per hop of the
-// full-width fixture at B=1024, the 43 conv1d calls are 13.65 GFLOP and
-// 178 MB of activations in + out, the 7 transpose convs 3.04 GFLOP and
-// 33 MB; the scalar kernels took 2.653 and 0.638 ms on an NVIDIA H100 80GB
-// HBM3 at 700 W (cuDNN's bf16 path: 2.074 and 0.327 ms).
-//   * conv1d, per group g (grid z):  out[m, n] = Σ_r A[m, r] · W[r, n] with
-//     m = (b, t), n < O/groups, r = (k, i) < K·I_f,
+// conv1d and transpose conv, both element types: implicit GEMMs.  The
+// first design (one output per thread, two global loads per FMA, nothing
+// reused) ran them bound by load and instruction issue, not by bytes or
+// FLOPs.  Per hop of the full-width fixture at B=1024, the 43 conv1d calls
+// are 13.65 GFLOP and the 7 transpose convs 3.04 GFLOP; their activations
+// in + out are 357 + 67 MB in f32 (178 + 33 MB in bf16).  On an NVIDIA
+// H100 80GB HBM3 at 700 W:
+//   * f32: bound by the FP32 pipes (67 TFLOP/s outside the tensor cores):
+//     0.204 + 0.045 ms of FFMA per hop, against 0.107 + 0.020 ms of bytes
+//     at 3.35 TB/s.  The one-output-per-thread kernels took 2.456 + 0.546
+//     ms of device time per tick.  The f32 mode is the port's exactness
+//     mode, so the GEMM stays on FFMA (no TF32, no 3xTF32) and keeps the
+//     old kernels' order of summation.
+//   * bf16: tensor cores (989 TFLOP/s) make the FLOPs cheap (14 + 3 µs);
+//     the floor is bytes (53 + 10 µs) and the launch latency of 50 calls.
+//     The scalar bf16 kernels took 2.653 + 0.638 ms (cuDNN's bf16 path:
+//     2.074 + 0.327 ms).
+// The GEMMs:
+//   * conv1d, per group g (grid z):  out[m, n] = bias[n] + Σ_r A[m, r] ·
+//     W[r, n] with m = (b, t), n < O/groups, r = (k, i) < K·I_f,
 //     A[m, r] = x[b, t·s + k, g·I_f + i] (for groups = 1 row m is the
 //     contiguous span of K·C_in elements at x + (b·T_in + t·s)·C_in; no
 //     im2col buffer), W[r, n] = w[k, i, g·O_g + n] (the [K, I_f, O] layout
@@ -44,41 +51,58 @@
 //     output rows t = j·s + p < t_out, taps a < q_p = ceil((K − p)/s),
 //     A[(b, j), (a, i)] = x[b, j − a, i] (zero outside [0, T_in)),
 //     W[(a, i), n] = w[p + a·s, i, n].  q_p also covers s ∤ K.
-//   * Main loop: a 3-stage ring of A (BM × 32) and B (32 × BN) tiles in
-//     shared memory filled by cp.async (16 B, .cg; rows and reduction
-//     columns out of range are zero-filled through the src-size operand),
-//     ldmatrix for A and ldmatrix.trans for the row-major B tile, and
-//     mma.sync m16n8k16 bf16 → f32 on 4 warps.  Rows are padded by 16 B so
-//     the 8 row addresses of an ldmatrix hit distinct banks.  Where C_in,
-//     I_f or O/groups is not a multiple of 8 (the small fixture's grouped
-//     pointwise convs, I_f = 2) the same tiles are filled with predicated
-//     scalar loads instead; the reduction is padded to 32 with zeros.
-//   * Epilogue: f32 accumulator + f32(bias), one rounding to bf16, staged
-//     through shared memory and written as 16-byte row chunks (scalar,
-//     predicated stores where O/groups is not a multiple of 8).
-//   * Tile: chosen per call on the host (lyra_conv_gemm_tile; mirrored by
-//     conv_stack.py:gemm_tile, which the tests pin) from five instantiations:
-//     the widest of BM × BN ∈ {128×64, 64×64, 32×32} (O/groups > 32),
-//     {64×32, 32×32} (> 16) or {64×16} that still fills one wave, 132
-//     blocks (one per SM of an H100 SXM), else the smallest.  Smaller tiles
-//     past one wave only re-read A and B: a sweep of all five tiles over
-//     the full fixture's calls at B=1024 (NVIDIA H100 80GB HBM3, 700 W)
-//     took 485 µs of device time per hop with a two-wave target where the
-//     fastest tile of each call sums to 434 µs; this rule picks a tile
-//     within 0.3 µs of the fastest for every call but one transpose conv
-//     (1.5 µs).  The small-M calls at B=1024 (M = 1024 rows for LyraGAN's T_out = 1
+//   * Frame (gemm_body, shared by both element types): a 3-stage ring of
+//     A (BM × BK, row-major) and B (BK × BN) tiles in shared memory filled
+//     by 16-byte cp.async (.cg; rows and reduction columns out of range are
+//     zero-filled through the src-size operand).  Rows are padded by 16 B.
+//     Where a 16-byte chunk would straddle a tap or a group (I_f or
+//     O/groups not a multiple of 8 bf16 / 4 floats; the small fixture's
+//     grouped pointwise convs, I_f = 2) the same tiles are filled with
+//     predicated scalar loads instead; the reduction is padded to BK with
+//     zeros, which add nothing.
+//   * Math policy, a template parameter of the frame:
+//       - MmaBf16: BK = 32, 4 warps, ldmatrix for A and ldmatrix.trans for
+//         the row-major B tile, mma.sync m16n8k16 bf16 → f32; epilogue
+//         + f32(bias), one rounding, staged through shared memory and
+//         written as 16-byte row chunks.
+//       - FfmaF32: BK = 16, one thread per TM × TN micro-tile of
+//         accumulators in registers: 8 × 4 at 128×64 and 4 × 4 at 64×64
+//         (256 threads), 4 × 2 at 64×32 (256) and 32×32 (128), 4 × 1 at
+//         64×16 (256).  Per 4 reduction steps a thread reads TM float4 of
+//         A (4 consecutive r of each of its rows) and 4 rows of TN floats
+//         of B, then issues 4·TM·TN FFMAs: 12 shared-memory loads per 128
+//         FFMAs at 8 × 4, against 2 global loads per FFMA before.  At
+//         least 3 blocks per SM (launch bound).  Each accumulator starts
+//         at f32(bias) and takes r = (k, i) in ascending order with fmaf
+//         in one thread — the old kernels' order, so results stay within
+//         rounding of them and two launches are bitwise equal.  Outputs go
+//         straight from registers to global memory as float4 / float2
+//         pieces, a grid row of threads writing consecutive floats.
+//     Per hop it stays well below the FP32 peak (PERF.md §6): most
+//     calls are 1-4 k-tiles deep or have few blocks, where the fixed cost
+//     of a launch and one block's load latency dominate.  Shared-memory
+//     bank conflicts are not what bounds it: layouts without them (A rows
+//     of a warp 20 floats apart) ran no faster.
+//   * Tile: chosen per call on the host (lyra_conv_gemm_tile, the same rule
+//     for both element types; mirrored by conv_stack.py:gemm_tile, which
+//     the tests pin) from five instantiations: the widest of BM × BN ∈
+//     {128×64, 64×64, 32×32} (O/groups > 32), {64×32, 32×32} (> 16) or
+//     {64×16} that still fills one wave, 132 blocks (one per SM of an H100
+//     SXM), else the smallest.  Smaller tiles past one wave only re-read A
+//     and B: a sweep of all five bf16 tiles over the full fixture's calls at
+//     B=1024 (NVIDIA H100 80GB HBM3, 700 W) found this rule within 0.3 µs
+//     of the fastest tile for every call but one transpose conv (1.5 µs).
+//     The small-M calls at B=1024 (M = 1024 rows for LyraGAN's T_out = 1
 //     convs) take 32×32 tiles: 32 row tiles × 8 column tiles = 256 blocks
 //     for O = 256.  All tiles stay under 48 KB of static shared memory
-//     (44,544 B at 128×64).
-//     No split-K: each output is one block's sum in a fixed order, so the
+//     (44,544 B bf16 and 43,776 B f32 at 128×64).
+//     No split-K: each output is one thread's sum in a fixed order, so the
 //     result is bitwise the same from run to run.
-//   With the instruction bound gone, the floor per hop is bytes (53 + 10 µs
-//   at 3.35 TB/s) and the launch latency of 50 calls; the tensor-core work
-//   is about 14 + 3 µs at the bf16 peak.  mma.sync rather than wgmma + TMA:
-//   the rate of the tensor cores is not the bound at these shapes, its
-//   operand layouts are simpler, and TMA's tiled mode does not express the
-//   overlapping strided windows of the implicit GEMM; wgmma, TMA and a
-//   persistent grid belong to the whole-stack kernel.
+//   mma.sync rather than wgmma + TMA for bf16: the rate of the tensor cores
+//   is not the bound at these shapes, its operand layouts are simpler, and
+//   TMA's tiled mode does not express the overlapping strided windows of
+//   the implicit GEMM; wgmma, TMA and a persistent grid belong to the
+//   whole-stack kernel.
 //
 // Every launcher returns cudaGetLastError() after its launch.
 
@@ -87,53 +111,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+
+constexpr int kDepthwiseThreads = 256;
 
 inline unsigned int blocks_for(long long total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  return static_cast<unsigned int>((total + kDepthwiseThreads - 1) /
+                                   kDepthwiseThreads);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// CONV_2D over time (W = 1), VALID, any stride, grouped:
-//   out[b, t, o] = bias[o] + sum_k sum_i x[b, t*stride + k, g*I_f + i] * w[k, i, o]
-// with g = o / (O / groups).  w is [K, I_f, O]; x is [B, T_in, C_in].
-template <typename T>
-__device__ __forceinline__ void conv1d_body(
-    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ out, int B, int T_in, int C_in, int T_out, int O, int K,
-    int I_f, int stride, int o_per_group) {
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long total = static_cast<long long>(B) * T_out * O;
-  if (idx >= total) return;
-  const int o = static_cast<int>(idx % O);
-  const long long bt = idx / O;
-  const int t = static_cast<int>(bt % T_out);
-  const long long b = bt / T_out;
-  const int g = o / o_per_group;
-  const T* xb = x + (b * T_in + static_cast<long long>(t) * stride) * C_in
-                + static_cast<long long>(g) * I_f;
-  float acc = bias != nullptr ? to_f32(bias[o]) : 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const T* xr = xb + static_cast<long long>(k) * C_in;
-    const T* wr = w + static_cast<long long>(k) * I_f * O + o;
-    for (int i = 0; i < I_f; ++i) {
-      acc = fmaf(to_f32(xr[i]), to_f32(wr[static_cast<long long>(i) * O]), acc);
-    }
-  }
-  out[idx] = from_f32<T>(acc);
 }
 
 // DEPTHWISE_CONV_2D over time, VALID, stride 1, dilation d:
@@ -159,57 +155,6 @@ __device__ __forceinline__ void depthwise_conv1d_body(
   out[idx] = from_f32<T>(acc);
 }
 
-// TRANSPOSE_CONV over time, VALID, stride s (any s; the graphs have s | K):
-//   out[b, t, o] = bias[o] + sum over taps k with (t - k) % s == 0 and
-//                  0 <= (t - k)/s < T_in of  sum_i x[b, (t-k)/s, i] * w[k, i, o]
-// for t < T_out (the declared output, at most (T_in - 1)*s + K rows).
-template <typename T>
-__device__ __forceinline__ void transpose_conv1d_body(
-    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ out, int B, int T_in, int I, int T_out, int O, int K,
-    int stride) {
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long total = static_cast<long long>(B) * T_out * O;
-  if (idx >= total) return;
-  const int o = static_cast<int>(idx % O);
-  const long long bt = idx / O;
-  const int t = static_cast<int>(bt % T_out);
-  const long long b = bt / T_out;
-  float acc = bias != nullptr ? to_f32(bias[o]) : 0.0f;
-  for (int k = t % stride; k < K && k <= t; k += stride) {
-    const int j = (t - k) / stride;
-    if (j >= T_in) continue;
-    const T* xr = x + (b * T_in + j) * I;
-    const T* wr = w + static_cast<long long>(k) * I * O + o;
-    for (int i = 0; i < I; ++i) {
-      acc = fmaf(to_f32(xr[i]), to_f32(wr[static_cast<long long>(i) * O]), acc);
-    }
-  }
-  out[idx] = from_f32<T>(acc);
-}
-
-// One named __global__ per kernel and element type, so that a profiler
-// shows which ran.
-__global__ void conv1d_fwd(const float* __restrict__ x,
-                           const float* __restrict__ w,
-                           const float* __restrict__ bias,
-                           float* __restrict__ out, int B, int T_in, int C_in,
-                           int T_out, int O, int K, int I_f, int stride,
-                           int o_per_group) {
-  conv1d_body<float>(x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f, stride,
-                     o_per_group);
-}
-
-__global__ void transpose_conv1d_fwd(const float* __restrict__ x,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ out, int B, int T_in,
-                                     int I, int T_out, int O, int K,
-                                     int stride) {
-  transpose_conv1d_body<float>(x, w, bias, out, B, T_in, I, T_out, O, K,
-                               stride);
-}
-
 #define LYRA_DEPTHWISE_KERNEL(SUFFIX, T)                                       \
   __global__ void depthwise_conv1d_fwd##SUFFIX(                                \
       const T* __restrict__ x, const T* __restrict__ w,                        \
@@ -220,29 +165,26 @@ __global__ void transpose_conv1d_fwd(const float* __restrict__ x,
   }
 
 LYRA_DEPTHWISE_KERNEL(, float)
-LYRA_DEPTHWISE_KERNEL(_bf16, __nv_bfloat16)
+LYRA_DEPTHWISE_KERNEL(_bf16, bf16)
 
 #undef LYRA_DEPTHWISE_KERNEL
 
-// -- bf16 implicit GEMM (conv1d_fwd_bf16, transpose_conv1d_fwd_bf16) ---------
+// -- implicit GEMM (conv1d_fwd*, transpose_conv1d_fwd*) -----------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kGemmThreads = 128;  // 4 warps
-constexpr int kBK = 32;            // reduction tile: two m16n8k16 steps
 constexpr int kStages = 3;
-constexpr int kPad = 8;            // 16 B of row padding against bank conflicts
 constexpr int kTargetBlocks = 132;  // one wave on an H100 SXM
+constexpr int kMmaThreads = 128;    // bf16: 4 warps
 
 // One launch's operands.  For the transpose conv, I_f is its I and N is O.
+template <typename T>
 struct GemmArgs {
-  const bf16* x;
-  const bf16* w;
-  const bf16* bias;
-  bf16* out;
+  const T* x;
+  const T* w;
+  const T* bias;
+  T* out;
   int B, T_in, C_in, T_out, O, K, I_f, stride;
   int N;    // GEMM columns: output channels per group (conv1d) or O
-  int vec;  // 16-byte cp.async and stores (C_in, I_f, N multiples of 8)
+  int vec;  // 16-byte cp.async and stores (I_f, N multiples of 16 B)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -294,134 +236,70 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The implicit GEMM of one (BM × BN) output tile; blockIdx.z is the group
-// (conv1d) or the output phase (transpose conv).  WM × WN warps, each on a
-// (BM/WM) × (BN/WN) sub-tile.
-template <int BM, int BN, int WM, int WN, bool TCONV>
-__device__ __forceinline__ void gemm_body(const GemmArgs& a) {
-  constexpr int WTM = BM / WM, WTN = BN / WN;
-  constexpr int MI = WTM / 16, NI = WTN / 8;
-  constexpr int LDA = kBK + kPad, LDB = BN + kPad, LDC = BN + kPad;
-  constexpr int A_STAGE = BM * LDA, B_STAGE = kBK * LDB;
-  constexpr int A_CHUNKS = BM * kBK / 8 / kGemmThreads;  // per thread
-  constexpr int B_ALL = kBK * BN / 8;                    // per tile
-  static_assert(WM * WN * 32 == kGemmThreads, "4 warps");
-  static_assert(MI >= 1 && NI % 2 == 0 && A_CHUNKS >= 1, "tile shape");
-  static_assert(BM * LDC <= kStages * A_STAGE, "C tile fits the A ring");
-  __shared__ __align__(16) bf16 smem[kStages * (A_STAGE + B_STAGE)];
-  bf16* const As = smem;
-  bf16* const Bs = smem + kStages * A_STAGE;
-
-  const int z = blockIdx.z, s = a.stride, N = a.N;
-  int M, R, J = 0;
-  if (TCONV) {
-    J = a.T_out > z ? (a.T_out - z + s - 1) / s : 0;  // rows t = j·s + z
-    const int q = a.K > z ? (a.K - z + s - 1) / s : 0;  // taps k = z + a·s
-    M = a.B * J;
-    R = q * a.I_f;
+// N consecutive floats from / to an address aligned to min(N, 4) floats.
+template <int N>
+__device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z,
+      v[4 * q + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
   } else {
-    M = a.B * a.T_out;
-    R = a.K * a.I_f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = p[e];
   }
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  if (m0 >= M) return;  // a phase with fewer rows than phase 0
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
+}
 
-  // This thread's A rows (fixed over the reduction) and its 8 columns.
-  const int a_col = (tid & 3) * 8;
-  long long a_base[A_CHUNKS];
-  int a_j[A_CHUNKS];  // transpose conv: the row's j; -1 marks m >= M
-  for (int c = 0; c < A_CHUNKS; ++c) {
-    const int m = m0 + (tid >> 2) + c * (kGemmThreads / 4);
-    a_base[c] = 0;
-    a_j[c] = -1;
-    if (m >= M) continue;
-    if (TCONV) {
-      const int b = m / J, j = m - b * J;
-      a_base[c] = (static_cast<long long>(b) * a.T_in + j) * a.I_f;
-      a_j[c] = j;
-    } else {
-      const int b = m / a.T_out, t = m - b * a.T_out;
-      a_base[c] = (static_cast<long long>(b) * a.T_in +
-                   static_cast<long long>(t) * s) * a.C_in +
-                  static_cast<long long>(z) * a.I_f;
-      a_j[c] = 0;
-    }
+template <int N>
+__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = v[e];
   }
-  // Address of A[row of chunk c, r], or nullptr where it is zero.
-  auto a_src = [&](int c, int r) -> const bf16* {
-    if (a_j[c] < 0 || r >= R) return nullptr;
-    const int k = r / a.I_f, i = r - k * a.I_f;
-    if (TCONV) {
-      const int t_in = a_j[c] - k;
-      if (t_in < 0 || t_in >= a.T_in) return nullptr;
-      return a.x + a_base[c] - static_cast<long long>(k) * a.I_f + i;
-    }
-    return a.x + a_base[c] + static_cast<long long>(k) * a.C_in + i;
-  };
-  // Address of W[r, n0 + n], or nullptr where it is zero.
-  auto b_src = [&](int r, int n) -> const bf16* {
-    if (r >= R || n >= N) return nullptr;
-    if (TCONV) {
-      const int tap = r / a.I_f, i = r - tap * a.I_f;
-      return a.w + (static_cast<long long>(z + tap * s) * a.I_f + i) * a.O + n;
-    }
-    return a.w + static_cast<long long>(r) * a.O +
-           static_cast<long long>(z) * N + n;
-  };
-  const bf16 zero = __ushort_as_bfloat16(0);
-  auto load_tile = [&](int kt, int stage) {
-    const int r0 = kt * kBK;
-    bf16* const as = As + stage * A_STAGE;
-    bf16* const bs = Bs + stage * B_STAGE;
-    for (int c = 0; c < A_CHUNKS; ++c) {
-      bf16* dst = as + ((tid >> 2) + c * (kGemmThreads / 4)) * LDA + a_col;
-      if (a.vec) {
-        const bf16* src = a_src(c, r0 + a_col);
-        cp_async16(dst, src != nullptr ? src : a.x, src != nullptr);
-      } else {
-        for (int e = 0; e < 8; ++e) {
-          const bf16* src = a_src(c, r0 + a_col + e);
-          dst[e] = src != nullptr ? *src : zero;
-        }
-      }
-    }
-    for (int idx = tid; idx < B_ALL; idx += kGemmThreads) {
-      const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
-      bf16* dst = bs + row * LDB + col;
-      if (a.vec) {
-        const bf16* src = b_src(r0 + row, n0 + col);
-        cp_async16(dst, src != nullptr ? src : a.w, src != nullptr);
-      } else {
-        for (int e = 0; e < 8; ++e) {
-          const bf16* src = b_src(r0 + row, n0 + col + e);
-          dst[e] = src != nullptr ? *src : zero;
-        }
-      }
-    }
-  };
+}
+
+// Math policy of the bf16 kernels: mma.sync on 4 warps, WM × WN warps each
+// on a (BM/WM) × (BN/WN) sub-tile.
+template <int BM_, int BN_, int WM, int WN>
+struct MmaBf16 {
+  using T = bf16;
+  static constexpr int BM = BM_, BN = BN_, kThreads = kMmaThreads, BK = 32;
+  static constexpr int WTM = BM / WM, WTN = BN / WN;
+  static constexpr int MI = WTM / 16, NI = WTN / 8;
+  static_assert(WM * WN * 32 == kThreads, "4 warps");
+  static_assert(MI >= 1 && NI % 2 == 0, "tile shape");
 
   float acc[MI][NI][4];
-  for (int mi = 0; mi < MI; ++mi)
-    for (int ni = 0; ni < NI; ++ni)
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+  int lane, wm, wn;
 
-  const int KT = (R + kBK - 1) / kBK;
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < KT) load_tile(st, st);
-    cp_async_commit();
+  __device__ __forceinline__ void init(const T* /*bias*/, int /*n0*/,
+                                       int /*N*/) {
+    lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    wm = warp / WN;
+    wn = warp % WN;
+    for (int mi = 0; mi < MI; ++mi)
+      for (int ni = 0; ni < NI; ++ni)
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed
-    __syncthreads();               // ... and tile kt-1's stage is free
-    const int next = kt + kStages - 1;
-    if (next < KT) load_tile(next, next % kStages);
-    cp_async_commit();
-    const bf16* as = As + (kt % kStages) * A_STAGE;
-    const bf16* bs = Bs + (kt % kStages) * B_STAGE;
+
+  // One BK-deep step over the A [BM][LDA] and B [BK][LDB] tiles.
+  template <int LDA, int LDB>
+  __device__ __forceinline__ void step(const T* as, const T* bs) {
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += 16) {
       unsigned af[MI][4], bfr[NI][2];
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
@@ -439,74 +317,333 @@ __device__ __forceinline__ void gemm_body(const GemmArgs& a) {
     }
   }
 
-  // Epilogue: + f32(bias), one rounding, staged in shared memory as rows.
-  cp_async_wait<0>();
-  __syncthreads();
-  bf16* const cs = smem;
-  const int bias_off = TCONV ? 0 : z * N;
+  // + f32(bias), one rounding, staged in shared memory (the A ring, free
+  // now) as rows, written as 16-byte row chunks.
+  template <int A_RING, class RowOut>
+  __device__ __forceinline__ void store(T* cs, const T* bias, int m0, int n0,
+                                        int M, int N, bool vec,
+                                        RowOut row_out) {
+    constexpr int LDC = BN + 8;
+    static_assert(BM * LDC <= A_RING, "C tile fits the A ring");
 #pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-    const int col = wn * WTN + ni * 8 + (lane & 3) * 2;
-    const int n = n0 + col;
-    float b0 = 0.0f, b1 = 0.0f;
-    if (a.bias != nullptr) {
-      if (n < N) b0 = __bfloat162float(a.bias[bias_off + n]);
-      if (n + 1 < N) b1 = __bfloat162float(a.bias[bias_off + n + 1]);
+    for (int ni = 0; ni < NI; ++ni) {
+      const int col = wn * WTN + ni * 8 + (lane & 3) * 2;
+      const int n = n0 + col;
+      float b0 = 0.0f, b1 = 0.0f;
+      if (bias != nullptr) {
+        if (n < N) b0 = __bfloat162float(bias[n]);
+        if (n + 1 < N) b1 = __bfloat162float(bias[n + 1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int row = wm * WTM + mi * 16 + (lane >> 2);
+        *reinterpret_cast<__nv_bfloat162*>(cs + row * LDC + col) =
+            __floats2bfloat162_rn(acc[mi][ni][0] + b0, acc[mi][ni][1] + b1);
+        *reinterpret_cast<__nv_bfloat162*>(cs + (row + 8) * LDC + col) =
+            __floats2bfloat162_rn(acc[mi][ni][2] + b0, acc[mi][ni][3] + b1);
+      }
     }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const int row = wm * WTM + mi * 16 + (lane >> 2);
-      *reinterpret_cast<__nv_bfloat162*>(cs + row * LDC + col) =
-          __floats2bfloat162_rn(acc[mi][ni][0] + b0, acc[mi][ni][1] + b1);
-      *reinterpret_cast<__nv_bfloat162*>(cs + (row + 8) * LDC + col) =
-          __floats2bfloat162_rn(acc[mi][ni][2] + b0, acc[mi][ni][3] + b1);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BM * BN / 8; idx += kThreads) {
+      const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
+      const int m = m0 + row, n = n0 + col;
+      if (m >= M || n >= N) continue;
+      T* dst = row_out(m) + n;
+      const T* src = cs + row * LDC + col;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
+      }
     }
   }
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN / 8; idx += kGemmThreads) {
-    const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
-    const int m = m0 + row, n = n0 + col;
-    if (m >= M || n >= N) continue;
-    bf16* dst;
+};
+
+// Math policy of the f32 kernels: FFMA on a GY × GX = (BM/TM) × (BN/TN)
+// thread grid (thread ty·GX + tx), each thread a TM × TN micro-tile of
+// accumulators in registers: rows ty·TM + i, columns tx·TN + j.
+template <int BM_, int BN_, int TM_, int TN_>
+struct FfmaF32 {
+  using T = float;
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = 16;
+  static constexpr int GY = BM / TM, GX = BN / TN, kThreads = GY * GX;
+  static_assert(GY * TM == BM && GX * TN == BN && kThreads % 32 == 0 &&
+                    (TN <= 2 || TN % 4 == 0),
+                "tile shape");
+
+  float acc[TM][TN];
+  int ty, tx;
+
+  // Every accumulator starts at f32(bias), as the scalar kernels did.
+  __device__ __forceinline__ void init(const T* bias, int n0, int N) {
+    ty = threadIdx.x / GX;
+    tx = threadIdx.x % GX;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx * TN + j;
+      const float b = bias != nullptr && n < N ? bias[n] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) acc[i][j] = b;
+    }
+  }
+
+  // BK reduction steps in ascending r: per 4 steps TM float4 of A (4
+  // consecutive r of each of the thread's rows), then per step one row of
+  // TN floats of B and TM·TN fmaf.
+  template <int LDA, int LDB>
+  __device__ __forceinline__ void step(const T* as, const T* bs) {
+    const float* ar = as + ty * TM * LDA;
+    const float* br = bs + tx * TN;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float av[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load_floats<4>(av[i], ar + i * LDA + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[TN];
+        load_floats<TN>(bv, br + (k4 + kk) * LDB);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(av[i][kk], bv[j], acc[i][j]);
+      }
+    }
+  }
+
+  // Straight from registers, in pieces of up to 4 floats: the GX threads
+  // of a grid row write GX·TN consecutive floats of each output row.  With
+  // vec, N is a multiple of 4, so a piece is wholly inside N or outside.
+  template <int A_RING, class RowOut>
+  __device__ __forceinline__ void store(T* /*smem*/, const T* /*bias*/,
+                                        int m0, int n0, int M, int N,
+                                        bool vec, RowOut row_out) {
+    constexpr int P = TN < 4 ? TN : 4;
+    const int n = n0 + tx * TN;
+    if (n >= N) return;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty * TM + i;
+      if (m >= M) return;
+      T* dst = row_out(m) + n;
+      if (vec) {
+#pragma unroll
+        for (int q = 0; q < TN; q += P) {
+          if (n + q >= N) break;
+          float piece[P];
+#pragma unroll
+          for (int e = 0; e < P; ++e) piece[e] = acc[i][q + e];
+          store_floats<P>(dst + q, piece);
+        }
+      } else {
+        for (int j = 0; j < TN && n + j < N; ++j) dst[j] = acc[i][j];
+      }
+    }
+  }
+};
+
+// The implicit GEMM of one (BM × BN) output tile under math policy P;
+// blockIdx.z is the group (conv1d) or the output phase (transpose conv).
+template <class P, bool TCONV>
+__device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
+  using T = typename P::T;
+  constexpr int BM = P::BM, BN = P::BN, BK = P::BK, NT = P::kThreads;
+  constexpr int CH = 16 / sizeof(T);            // elements per 16-byte chunk
+  constexpr int LDA = BK + CH, LDB = BN + CH;   // rows padded by 16 B
+  constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;
+  constexpr int ROW_CH = BK / CH;               // chunks per A row
+  constexpr int A_ROWS = NT / ROW_CH;           // A rows per pass
+  constexpr int A_CHUNKS = (BM + A_ROWS - 1) / A_ROWS;  // passes per thread
+  constexpr int B_ALL = BK * BN / CH;           // chunks per B tile
+  static_assert(NT % ROW_CH == 0 && BN % CH == 0, "tile shape");
+  __shared__ __align__(16) T smem[kStages * (A_STAGE + B_STAGE)];
+  T* const As = smem;
+  T* const Bs = smem + kStages * A_STAGE;
+
+  const int z = blockIdx.z, s = a.stride, N = a.N;
+  int M, R, J = 0;
+  if (TCONV) {
+    J = a.T_out > z ? (a.T_out - z + s - 1) / s : 0;  // rows t = j·s + z
+    const int q = a.K > z ? (a.K - z + s - 1) / s : 0;  // taps k = z + a·s
+    M = a.B * J;
+    R = q * a.I_f;
+  } else {
+    M = a.B * a.T_out;
+    R = a.K * a.I_f;
+  }
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (m0 >= M) return;  // a phase with fewer rows than phase 0
+  const int tid = threadIdx.x;
+
+  // This thread's A rows (fixed over the reduction) and its CH columns.
+  const int a_col = (tid % ROW_CH) * CH, a_row = tid / ROW_CH;
+  long long a_base[A_CHUNKS];
+  int a_j[A_CHUNKS];  // transpose conv: the row's j; -1 marks no row
+#pragma unroll
+  for (int c = 0; c < A_CHUNKS; ++c) {
+    const int row = a_row + c * A_ROWS, m = m0 + row;
+    a_base[c] = 0;
+    a_j[c] = -1;
+    if (row >= BM || m >= M) continue;
     if (TCONV) {
       const int b = m / J, j = m - b * J;
-      dst = a.out + (static_cast<long long>(b) * a.T_out + j * s + z) * a.O + n;
+      a_base[c] = (static_cast<long long>(b) * a.T_in + j) * a.I_f;
+      a_j[c] = j;
     } else {
-      dst = a.out + static_cast<long long>(m) * a.O + bias_off + n;
-    }
-    const bf16* src = cs + row * LDC + col;
-    if (a.vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
+      const int b = m / a.T_out, t = m - b * a.T_out;
+      a_base[c] = (static_cast<long long>(b) * a.T_in +
+                   static_cast<long long>(t) * s) * a.C_in +
+                  static_cast<long long>(z) * a.I_f;
+      a_j[c] = 0;
     }
   }
+  // Address of A[row of chunk c, r], or nullptr where it is zero.
+  auto a_src = [&](int c, int r) -> const T* {
+    if (a_j[c] < 0 || r >= R) return nullptr;
+    const int k = r / a.I_f, i = r - k * a.I_f;
+    if (TCONV) {
+      const int t_in = a_j[c] - k;
+      if (t_in < 0 || t_in >= a.T_in) return nullptr;
+      return a.x + a_base[c] - static_cast<long long>(k) * a.I_f + i;
+    }
+    return a.x + a_base[c] + static_cast<long long>(k) * a.C_in + i;
+  };
+  // Address of W[r, n0 + n], or nullptr where it is zero.
+  auto b_src = [&](int r, int n) -> const T* {
+    if (r >= R || n >= N) return nullptr;
+    if (TCONV) {
+      const int tap = r / a.I_f, i = r - tap * a.I_f;
+      return a.w + (static_cast<long long>(z + tap * s) * a.I_f + i) * a.O + n;
+    }
+    return a.w + static_cast<long long>(r) * a.O +
+           static_cast<long long>(z) * N + n;
+  };
+  const T zero = from_f32<T>(0.0f);
+  auto load_tile = [&](int kt, int stage) {
+    const int r0 = kt * BK;
+    T* const as = As + stage * A_STAGE;
+    T* const bs = Bs + stage * B_STAGE;
+#pragma unroll
+    for (int c = 0; c < A_CHUNKS; ++c) {
+      const int row = a_row + c * A_ROWS;
+      if (row >= BM) break;
+      T* dst = as + row * LDA + a_col;
+      if (a.vec) {
+        const T* src = a_src(c, r0 + a_col);
+        cp_async16(dst, src != nullptr ? src : a.x, src != nullptr);
+      } else {
+        for (int e = 0; e < CH; ++e) {
+          const T* src = a_src(c, r0 + a_col + e);
+          dst[e] = src != nullptr ? *src : zero;
+        }
+      }
+    }
+    for (int idx = tid; idx < B_ALL; idx += NT) {
+      const int row = idx / (BN / CH), col = (idx % (BN / CH)) * CH;
+      T* dst = bs + row * LDB + col;
+      if (a.vec) {
+        const T* src = b_src(r0 + row, n0 + col);
+        cp_async16(dst, src != nullptr ? src : a.w, src != nullptr);
+      } else {
+        for (int e = 0; e < CH; ++e) {
+          const T* src = b_src(r0 + row, n0 + col + e);
+          dst[e] = src != nullptr ? *src : zero;
+        }
+      }
+    }
+  };
+
+  const int bias_off = TCONV ? 0 : z * N;
+  const T* const bias = a.bias != nullptr ? a.bias + bias_off : nullptr;
+  P math;
+  math.init(bias, n0, N);
+
+  const int KT = (R + BK - 1) / BK;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < KT) load_tile(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();  // tile kt has landed
+    __syncthreads();               // ... and tile kt-1's stage is free
+    const int next = kt + kStages - 1;
+    if (next < KT) load_tile(next, next % kStages);
+    cp_async_commit();
+    math.template step<LDA, LDB>(As + (kt % kStages) * A_STAGE,
+                                 Bs + (kt % kStages) * B_STAGE);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Output row of GEMM row m, at the group's first column.
+  auto row_out = [&](int m) -> T* {
+    if (TCONV) {
+      const int b = m / J, j = m - b * J;
+      return a.out + (static_cast<long long>(b) * a.T_out + j * s + z) * a.O;
+    }
+    return a.out + static_cast<long long>(m) * a.O + bias_off;
+  };
+  math.template store<kStages * A_STAGE>(smem, bias, m0, n0, M, N, a.vec,
+                                         row_out);
+}
+
+// f32: at least 3 blocks per SM (≤ 85 registers at 256 threads), so that
+// ptxas schedules the FFMA loop for that occupancy; on the card this ran
+// faster than without the hint.
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
+    conv1d_fwd(const GemmArgs<float> a) {
+  gemm_body<FfmaF32<BM, BN, TM, TN>, false>(a);
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
+    transpose_conv1d_fwd(const GemmArgs<float> a) {
+  gemm_body<FfmaF32<BM, BN, TM, TN>, true>(a);
 }
 
 template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(kGemmThreads)
-    conv1d_fwd_bf16(const GemmArgs a) {
-  gemm_body<BM, BN, WM, WN, false>(a);
+__global__ void __launch_bounds__(kMmaThreads)
+    conv1d_fwd_bf16(const GemmArgs<bf16> a) {
+  gemm_body<MmaBf16<BM, BN, WM, WN>, false>(a);
 }
 
 template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(kGemmThreads)
-    transpose_conv1d_fwd_bf16(const GemmArgs a) {
-  gemm_body<BM, BN, WM, WN, true>(a);
+__global__ void __launch_bounds__(kMmaThreads)
+    transpose_conv1d_fwd_bf16(const GemmArgs<bf16> a) {
+  gemm_body<MmaBf16<BM, BN, WM, WN>, true>(a);
 }
 
-// The instantiated tiles, (BM, BN), in conv_stack.py:GEMM_TILES's order.
+// The instantiated tiles, (BM, BN), in conv_stack.py:GEMM_TILES's order,
+// and the f32 micro-tile (TM, TN) of each.
 constexpr int kTileBM[] = {128, 64, 64, 32, 64};
 constexpr int kTileBN[] = {64, 64, 32, 32, 16};
+constexpr int kF32TM[] = {8, 4, 4, 4, 4};
+constexpr int kF32TN[] = {4, 4, 2, 2, 1};
 
-template <int BM, int BN, int WM, int WN, bool TCONV>
-int launch_gemm(const GemmArgs& a, int M, int z, cudaStream_t stream) {
-  const dim3 grid((M + BM - 1) / BM, (a.N + BN - 1) / BN, z);
+template <int TILE, bool TCONV>
+int launch_gemm(const GemmArgs<float>& a, dim3 grid, cudaStream_t stream) {
+  constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
+  constexpr int TM = kF32TM[TILE], TN = kF32TN[TILE];
+  constexpr int nt = FfmaF32<BM, BN, TM, TN>::kThreads;
+  if (TCONV) {
+    transpose_conv1d_fwd<BM, BN, TM, TN><<<grid, nt, 0, stream>>>(a);
+  } else {
+    conv1d_fwd<BM, BN, TM, TN><<<grid, nt, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TILE, bool TCONV>
+int launch_gemm(const GemmArgs<bf16>& a, dim3 grid, cudaStream_t stream) {
+  constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
+  constexpr int WM = BN == 16 ? 4 : 2, WN = BN == 16 ? 1 : 2;
   if (TCONV) {
     transpose_conv1d_fwd_bf16<BM, BN, WM, WN>
-        <<<grid, kGemmThreads, 0, stream>>>(a);
+        <<<grid, kMmaThreads, 0, stream>>>(a);
   } else {
-    conv1d_fwd_bf16<BM, BN, WM, WN><<<grid, kGemmThreads, 0, stream>>>(a);
+    conv1d_fwd_bf16<BM, BN, WM, WN><<<grid, kMmaThreads, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -530,17 +667,47 @@ int gemm_tile(int M, int N, int z) {
   return cand[n_cand - 1];
 }
 
-template <bool TCONV>
-int launch_gemm_tiled(const GemmArgs& a, int M, int z, void* stream) {
+template <bool TCONV, typename T>
+int launch_gemm_tiled(const GemmArgs<T>& a, int M, int z, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gemm_tile(M, a.N, z)) {
-    case 0: return launch_gemm<128, 64, 2, 2, TCONV>(a, M, z, st);
-    case 1: return launch_gemm<64, 64, 2, 2, TCONV>(a, M, z, st);
-    case 2: return launch_gemm<64, 32, 2, 2, TCONV>(a, M, z, st);
-    case 3: return launch_gemm<32, 32, 2, 2, TCONV>(a, M, z, st);
-    default: return launch_gemm<64, 16, 4, 1, TCONV>(a, M, z, st);
+  const int tile = gemm_tile(M, a.N, z);
+  const dim3 grid((M + kTileBM[tile] - 1) / kTileBM[tile],
+                  (a.N + kTileBN[tile] - 1) / kTileBN[tile], z);
+  switch (tile) {
+    case 0: return launch_gemm<0, TCONV>(a, grid, st);
+    case 1: return launch_gemm<1, TCONV>(a, grid, st);
+    case 2: return launch_gemm<2, TCONV>(a, grid, st);
+    case 3: return launch_gemm<3, TCONV>(a, grid, st);
+    default: return launch_gemm<4, TCONV>(a, grid, st);
   }
+}
+
+template <typename T>
+int launch_conv1d(const T* x, const T* w, const T* bias, T* out, int B,
+                  int T_in, int C_in, int T_out, int O, int K, int I_f,
+                  int stride, int groups, void* stream) {
+  constexpr int ch = 16 / sizeof(T);
+  const int N = O / groups;
+  const int vec = I_f % ch == 0 && N % ch == 0 && aligned16(x) &&
+                  aligned16(w) && aligned16(out);
+  const GemmArgs<T> a{x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f,
+                      stride, N, vec};
+  return launch_gemm_tiled<false>(a, B * T_out, groups, stream);
+}
+
+template <typename T>
+int launch_transpose_conv1d(const T* x, const T* w, const T* bias, T* out,
+                            int B, int T_in, int I, int T_out, int O, int K,
+                            int stride, void* stream) {
+  constexpr int ch = 16 / sizeof(T);
+  const int vec = I % ch == 0 && O % ch == 0 && aligned16(x) &&
+                  aligned16(w) && aligned16(out);
+  const GemmArgs<T> a{x, w, bias, out, B, T_in, I, T_out, O, K, I, stride, O,
+                      vec};
+  // Phase 0 has the most output rows: ceil(T_out / stride) per stream.
+  return launch_gemm_tiled<true>(a, B * ((T_out + stride - 1) / stride),
+                                 stride, stream);
 }
 
 }  // namespace
@@ -550,31 +717,26 @@ extern "C" {
 
 int lyra_conv_gemm_tile(int M, int N, int z) { return gemm_tile(M, N, z); }
 
-int lyra_conv1d_fwd(const float* x, const float* w, const float* bias,
-                    float* out, int B, int T_in, int C_in, int T_out, int O,
-                    int K, int I_f, int stride, int groups, void* stream) {
-  long long total = static_cast<long long>(B) * T_out * O;
-  if (total > 0) {
-    conv1d_fwd<<<blocks_for(total), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-        x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f, stride,
-        O / groups);
+#define LYRA_GEMM_LAUNCHERS(SUFFIX, T)                                         \
+  int lyra_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, T* out,  \
+                              int B, int T_in, int C_in, int T_out, int O,    \
+                              int K, int I_f, int stride, int groups,         \
+                              void* stream) {                                 \
+    return launch_conv1d<T>(x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f, \
+                            stride, groups, stream);                          \
+  }                                                                           \
+  int lyra_transpose_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, \
+                                        T* out, int B, int T_in, int I,       \
+                                        int T_out, int O, int K, int stride,  \
+                                        void* stream) {                       \
+    return launch_transpose_conv1d<T>(x, w, bias, out, B, T_in, I, T_out, O,  \
+                                      K, stride, stream);                     \
   }
-  return static_cast<int>(cudaGetLastError());
-}
 
-int lyra_transpose_conv1d_fwd(const float* x, const float* w,
-                              const float* bias, float* out, int B, int T_in,
-                              int I, int T_out, int O, int K, int stride,
-                              void* stream) {
-  long long total = static_cast<long long>(B) * T_out * O;
-  if (total > 0) {
-    transpose_conv1d_fwd<<<blocks_for(total), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        x, w, bias, out, B, T_in, I, T_out, O, K, stride);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+LYRA_GEMM_LAUNCHERS(, float)
+LYRA_GEMM_LAUNCHERS(_bf16, __nv_bfloat16)
+
+#undef LYRA_GEMM_LAUNCHERS
 
 #define LYRA_DEPTHWISE_LAUNCHER(SUFFIX, T)                                     \
   int lyra_depthwise_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, \
@@ -583,7 +745,7 @@ int lyra_transpose_conv1d_fwd(const float* x, const float* w,
                                         void* stream) {                        \
     long long total = static_cast<long long>(B) * T_out * C;                   \
     if (total > 0) {                                                           \
-      depthwise_conv1d_fwd##SUFFIX<<<blocks_for(total), kThreads, 0,           \
+      depthwise_conv1d_fwd##SUFFIX<<<blocks_for(total), kDepthwiseThreads, 0,  \
                                      static_cast<cudaStream_t>(stream)>>>(     \
           x, w, bias, out, B, T_in, C, T_out, K, dilation);                    \
     }                                                                          \
@@ -594,32 +756,5 @@ LYRA_DEPTHWISE_LAUNCHER(, float)
 LYRA_DEPTHWISE_LAUNCHER(_bf16, __nv_bfloat16)
 
 #undef LYRA_DEPTHWISE_LAUNCHER
-
-int lyra_conv1d_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                         const __nv_bfloat16* bias, __nv_bfloat16* out, int B,
-                         int T_in, int C_in, int T_out, int O, int K, int I_f,
-                         int stride, int groups, void* stream) {
-  const int N = O / groups;
-  const int vec = I_f % 8 == 0 && N % 8 == 0 && aligned16(x) &&
-                  aligned16(w) && aligned16(out);
-  const GemmArgs a{x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f, stride,
-                   N, vec};
-  return launch_gemm_tiled<false>(a, B * T_out, groups, stream);
-}
-
-int lyra_transpose_conv1d_fwd_bf16(const __nv_bfloat16* x,
-                                   const __nv_bfloat16* w,
-                                   const __nv_bfloat16* bias,
-                                   __nv_bfloat16* out, int B, int T_in, int I,
-                                   int T_out, int O, int K, int stride,
-                                   void* stream) {
-  const int vec = I % 8 == 0 && O % 8 == 0 && aligned16(x) && aligned16(w) &&
-                  aligned16(out);
-  const GemmArgs a{x, w, bias, out, B, T_in, I, T_out, O, K, I, stride, O,
-                   vec};
-  // Phase 0 has the most output rows: ceil(T_out / stride) per stream.
-  return launch_gemm_tiled<true>(a, B * ((T_out + stride - 1) / stride),
-                                 stride, stream);
-}
 
 }  // extern "C"

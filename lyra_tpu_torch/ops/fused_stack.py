@@ -33,8 +33,8 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence, Set,
 import numpy as np
 import torch
 
-from lyra_tpu.tflite import model as tfl
 from lyra_tpu_torch.ops import conv_stack, cuda_build
+from lyra_tpu_torch.tflite import model as tfl
 from lyra_tpu_torch.tflite.executor import GraphFn, State
 
 
@@ -74,7 +74,7 @@ class FusedStack:
     `(state, x) → (y, new_state)` with x and y batch-native in graph shape."""
 
     def __init__(self, path: str, signature: str = "serving_default",
-                 mode: str = "float", device="cpu"):
+                 mode: str = "float", device=None):
         self.graph = GraphFn(tfl.load(path), signature, mode=mode,
                              device=device)
         gl = self.graph

@@ -3,8 +3,7 @@
 Every supported bitrate's packet is whole 4-bit stages with no header and
 no padding, so the wire format is an MSB-first nibble interleave: byte i =
 stage[2i] << 4 | stage[2i + 1].  These run on the tensors' device; the host
-codecs (`pack_indices_batch` and friends) are imported from
-lyra_tpu.packet, which is framework-free.
+codecs (`pack_indices_batch` and friends) are not ported yet.
 
 As in the JAX package, out-of-range values in the packed region wrap to
 their low nibble (−1 packs as 0xF) instead of raising: a check would need
@@ -15,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from lyra_tpu import config
+from lyra_tpu_torch import config
 
 
 def _nibble_stages(num_bits: int) -> int:

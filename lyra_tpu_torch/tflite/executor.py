@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lyra_tpu.tflite import model as tfl
+from lyra_tpu_torch.tflite import model as tfl
+from lyra_tpu_torch.utils.device import resolve
 
 State = Dict[str, torch.Tensor]
 
@@ -206,13 +207,13 @@ class GraphFn:
     """
 
     def __init__(self, mdef: tfl.ModelDef, signature: str = "serving_default",
-                 mode: str = "float", device="cpu",
+                 mode: str = "float", device=None,
                  boundary_store: Optional[str] = None):
         self.dtype = compute_dtype(mode)
         if boundary_store is not None:
             raise NotImplementedError(
                 "boundary_store: fp8 layer-boundary storage is not ported")
-        self.device = torch.device(device)
+        self.device = resolve(device)
         sig = mdef.signatures[signature]
         self.sg = mdef.subgraphs[sig["subgraph"]]
         self.sig_inputs: Dict[str, int] = dict(sig["inputs"])
@@ -377,7 +378,7 @@ class GraphFn:
 
 
 def load_graph(path: str, signature: str = "serving_default",
-               mode: str = "float", device="cpu") -> GraphFn:
+               mode: str = "float", device=None) -> GraphFn:
     """Parse `path` and lower `signature` (float or bf16 mode) to a batched
     torch function."""
     return GraphFn(tfl.load(path), signature, mode=mode, device=device)

@@ -20,9 +20,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from lyra_tpu_torch.utils.device import resolve
 
-def state_from_numpy(tree: Any, device="cpu") -> Any:
-    """numpy (or JAX) state tree → torch tree on `device`."""
+
+def state_from_numpy(tree: Any, device=None) -> Any:
+    """numpy (or JAX) state tree → torch tree on `device` (the card by
+    default)."""
+    device = resolve(device)
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device) for k, v in tree.items()}
     a = np.asarray(tree)

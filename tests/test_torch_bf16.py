@@ -81,12 +81,13 @@ def _dtypes(tree):
 def test_executor_bf16_matches_jax_per_hop(name):
     ref16, end16 = _jax_graph_run(name, "bf16")
     ref32, _ = _jax_graph_run(name, "float")
-    g = load_graph(os.path.join(SMALL, f"{name}.tflite"), mode="bf16")
+    g = load_graph(os.path.join(SMALL, f"{name}.tflite"), mode="bf16",
+                   device="cpu")
     assert _dtypes(state_to_numpy(g.init_state(B))) == _dtypes(ref16[0][0])
     assert any(v.dtype == torch.bfloat16 for v in g.init_state(B).values())
     for t, (x, (pre, y16), (_, y32)) in enumerate(zip(_inputs(name), ref16,
                                                       ref32)):
-        out, st = g(state_from_numpy(pre), input_audio=torch.from_numpy(x))
+        out, st = g(state_from_numpy(pre, "cpu"), input_audio=torch.from_numpy(x))
         y = out["output_0"]
         assert y.dtype == torch.float32
         err = np.abs(y.reshape(B, -1).numpy() - y16).max()
@@ -100,7 +101,7 @@ def test_fused_stack_bf16_matches_pallas_bf16(name):
     pallas = FusedStackKernel(path, mode="bf16", block_streams=B,
                               interpret=True)
     ref32, _ = _jax_graph_run(name, "float")
-    ours = FusedStack(path, mode="bf16")
+    ours = FusedStack(path, mode="bf16", device="cpu")
     ps, ts = pallas.init_state(B), ours.init_state(B)
     assert all(v.dtype == torch.bfloat16 for v in ts.values()
                if v.is_floating_point())
@@ -157,12 +158,12 @@ def test_rvq_decode_bf16_matches_jax(max_stages):
     idx[:, 30:] = -1
     ref = np.asarray(JaxRvq(cbs).decode(jnp.asarray(idx), dtype=jnp.bfloat16,
                                         max_stages=max_stages))
-    got = ResidualVectorQuantizer(cbs).decode(
+    got = ResidualVectorQuantizer(cbs, "cpu").decode(
         torch.from_numpy(idx), dtype=torch.bfloat16,
         max_stages=max_stages).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
-    f32 = ResidualVectorQuantizer(cbs).decode(torch.from_numpy(idx)).numpy()
+    f32 = ResidualVectorQuantizer(cbs, "cpu").decode(torch.from_numpy(idx)).numpy()
     assert np.abs(got - f32).max() > 0  # the codewords were rounded
 
 
@@ -172,7 +173,7 @@ def test_bf16_state_tree_roundtrip_is_bitwise():
     rng = np.random.default_rng(8)
     st["gan"] = {k: rng.normal(size=v.shape).astype(v.dtype)
                  for k, v in st["gan"].items()}
-    t = state_from_numpy(st)
+    t = state_from_numpy(st, "cpu")
     assert all(v.dtype == torch.bfloat16 for v in t["gan"].values())
     back = state_to_numpy(t)
 
@@ -218,14 +219,16 @@ def jax_bf16_run():
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 def test_bf16_engines_match_jax_stage_by_stage(jax_bf16_run, backend):
-    te = EncoderEngine(16000, SMALL, backend=backend, mode="bf16")
-    td = DecoderEngine(16000, SMALL, backend=backend, mode="bf16")
+    te = EncoderEngine(16000, SMALL, backend=backend, mode="bf16",
+                       device="cpu")
+    td = DecoderEngine(16000, SMALL, backend=backend, mode="bf16",
+                       device="cpu")
     audio, rec, ticks = jax_bf16_run
     reached = set()
     for t, (pre_e, pre_d, jf, jidx, ja, jcn, jds) in enumerate(ticks):
         if t < WARM:
             continue
-        tes = state_from_numpy(pre_e)
+        tes = state_from_numpy(pre_e, "cpu")
         tf, _ = te.soundstream.extract(
             tes["soundstream"],
             dsp_utils.int16_to_unit(torch.from_numpy(audio[t])))
@@ -236,7 +239,7 @@ def test_bf16_engines_match_jax_stage_by_stage(jax_bf16_run, backend):
         tidx = te.rvq.quantize(torch.from_numpy(jf), NQ,
                                method="kernel" if backend == "kernel" else "fast")
         np.testing.assert_array_equal(tidx.numpy(), jidx)
-        ta, tcn, tds = td.step(state_from_numpy(pre_d),
+        ta, tcn, tds = td.step(state_from_numpy(pre_d, "cpu"),
                                torch.from_numpy(jidx), torch.from_numpy(rec[t]))
         assert np.abs(ta.numpy() - ja).max() <= REL_BAR * np.abs(ja).max(), t
         np.testing.assert_array_equal(tcn.numpy(), jcn)

@@ -263,10 +263,60 @@ def test_bf16_engines_tick_at_48k_on_card(cuda):
     assert all(a > b for a, b in zip(after, before))
 
 
-def _conv_operands(rng, batch, t_in, c_in, k, i_f, o, dev):
-    x = _bf16(rng.normal(size=(batch, t_in, c_in)), dev)
-    w = _bf16(rng.normal(0.0, (k * i_f) ** -0.5, (k, i_f, o)), dev)
-    return x, w, _bf16(rng.normal(size=(o,)), dev)
+def _conv_operands(rng, batch, t_in, c_in, k, i_f, o, dev,
+                   dtype=torch.bfloat16):
+    x = _t(rng.normal(size=(batch, t_in, c_in)), dev).to(dtype)
+    w = _t(rng.normal(0.0, (k * i_f) ** -0.5, (k, i_f, o)), dev).to(dtype)
+    return x, w, _t(rng.normal(size=(o,)), dev).to(dtype)
+
+
+def _close_f32(got, ref):
+    """One f32 kernel call: within 1e-5 × max|plain| (both sum in f32, in
+    different orders)."""
+    assert got.dtype == ref.dtype == torch.float32
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_CONV1D + RAGGED_CONV1D)
+def test_conv1d_f32_gemm_matches_plain(cuda, shape, batch):
+    t_in, c_in, k, i_f, o, stride = shape
+    x, w, b = _conv_operands(np.random.default_rng(t_in * k + o), batch,
+                             t_in, c_in, k, i_f, o, cuda, torch.float32)
+    n = conv_stack.CONV1D.launches
+    _close_f32(conv_stack.conv1d(x, w, b, stride),
+               conv_stack.conv1d_plain(x, w, b, stride))
+    assert conv_stack.CONV1D.launches == n + 1
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_TCONV + RAGGED_TCONV)
+def test_transpose_conv_f32_gemm_matches_plain(cuda, shape, batch):
+    t_in, i, k, o, stride, t_out = shape
+    x, w, b = _conv_operands(np.random.default_rng(t_in * k + o), batch,
+                             t_in, i, k, i, o, cuda, torch.float32)
+    n = conv_stack.TCONV.launches
+    _close_f32(conv_stack.transpose_conv1d(x, w, b, stride, t_out),
+               conv_stack.transpose_conv1d_plain(x, w, b, stride, t_out))
+    assert conv_stack.TCONV.launches == n + 1
+
+
+def test_f32_gemm_kernels_are_deterministic(cuda):
+    rng = np.random.default_rng(9)
+    for shape in ((84, 64, 5, 64, 64, 1), (6, 256, 4, 256, 512, 2),
+                  (40, 8, 1, 2, 8, 1)):
+        t_in, c_in, k, i_f, o, stride = shape
+        x, w, b = _conv_operands(rng, 1024, t_in, c_in, k, i_f, o, cuda,
+                                 torch.float32)
+        assert torch.equal(conv_stack.conv1d(x, w, b, stride),
+                           conv_stack.conv1d(x, w, b, stride)), shape
+    for shape in ((9, 64, 10, 64, 5, 50), (3, 6, 4, 10, 2, 7)):
+        t_in, i, k, o, stride, t_out = shape
+        x, w, b = _conv_operands(rng, 1024, t_in, i, k, i, o, cuda,
+                                 torch.float32)
+        assert torch.equal(conv_stack.transpose_conv1d(x, w, b, stride, t_out),
+                           conv_stack.transpose_conv1d(x, w, b, stride, t_out))
 
 
 @pytest.mark.parametrize("batch", [3, 1024])
@@ -314,11 +364,14 @@ def test_bf16_gemm_launch_counters(cuda):
 
 def test_launcher_tile_matches_planner(cuda):
     lib = conv_stack._lib()
-    for batch in (1, 64, 1024):
-        plans = [conv_stack.conv1d_plan((batch, t_in, c_in), (k, i_f, o), s)
+    for batch, dtype in ((1, torch.float32), (64, torch.float32),
+                         (1024, torch.float32), (1, torch.bfloat16),
+                         (64, torch.bfloat16), (1024, torch.bfloat16)):
+        plans = [conv_stack.conv1d_plan((batch, t_in, c_in), (k, i_f, o), s,
+                                        dtype=dtype)
                  for t_in, c_in, k, i_f, o, s in FULL_CONV1D + RAGGED_CONV1D]
         plans += [conv_stack.transpose_conv1d_plan((batch, t_in, i), (k, i, o),
-                                                   s, t_out)
+                                                   s, t_out, dtype=dtype)
                   for t_in, i, k, o, s, t_out in FULL_TCONV + RAGGED_TCONV]
         for plan in plans:
             assert lib.lyra_conv_gemm_tile(*plan.dims) == plan.tile, plan

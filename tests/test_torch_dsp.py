@@ -67,7 +67,7 @@ def test_mel_builders_match_jax():
 
 def test_log_mel_matches_jax_over_60_hops():
     cfg = melspec.MelConfig.for_rate(16000)
-    ours = melspec.LogMelExtractor(cfg)
+    ours = melspec.LogMelExtractor(cfg, device="cpu")
     ref = jax_melspec.LogMelExtractor(jax_melspec.MelConfig.for_rate(16000))
     s, rs = ours.init_state(B), ref.init_state(B)
     for hop in _speechlike(1):
@@ -79,7 +79,7 @@ def test_log_mel_matches_jax_over_60_hops():
 
 
 def test_noise_estimator_matches_jax_over_60_hops():
-    ours, ref = NoiseEstimator(16000), JaxNoise(16000)
+    ours, ref = NoiseEstimator(16000, device="cpu"), JaxNoise(16000)
     s, rs = ours.init_state(B), ref.init_state(B)
     seen = set()
     for hop in _speechlike(2):
@@ -110,7 +110,7 @@ def test_cng_phase_hash_is_bit_exact():
     ref = np.asarray(JaxCng._random_phases(jnp.asarray(ctr), 512))
     np.testing.assert_array_equal(got, ref)
     # Counter lineage: init (with wraparound) and per-hop advance.
-    ours, jref = ComfortNoiseGenerator(16000), JaxCng(16000)
+    ours, jref = ComfortNoiseGenerator(16000, device="cpu"), JaxCng(16000)
     for seed in (0, 7, 0xFFFFFFF0):
         np.testing.assert_array_equal(
             ours.init_state(4096, seed=seed)["ctr"].numpy().astype(np.uint32),
@@ -118,7 +118,7 @@ def test_cng_phase_hash_is_bit_exact():
 
 
 def test_cng_hops_match_jax_over_60_hops():
-    ours, ref = ComfortNoiseGenerator(16000), JaxCng(16000)
+    ours, ref = ComfortNoiseGenerator(16000, device="cpu"), JaxCng(16000)
     s, rs = ours.init_state(B, seed=3), ref.init_state(B, seed=3)
     feats = np.random.default_rng(4).uniform(0.7, 1.1, (B, 160)).astype(
         np.float32)
@@ -136,9 +136,9 @@ def test_feature_estimators():
     st = torch.zeros(2, 64)
     f = torch.ones(2, 64)
     mask = torch.tensor([True, False])
-    last = LastFrameFeatureEstimator().update(st, f, mask)
+    last = LastFrameFeatureEstimator(device="cpu").update(st, f, mask)
     assert torch.equal(last[0], f[0]) and torch.equal(last[1], st[1])
-    dec = DecayingFeatureEstimator(0.5)
+    dec = DecayingFeatureEstimator(0.5, device="cpu")
     s = dec.update(f, f, torch.tensor([False, False]))
     assert torch.allclose(s, 0.5 * f)
 

@@ -84,13 +84,13 @@ def jax_run(jax_engines):
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 def test_slice_matches_jax_stage_by_stage(jax_run, backend):
-    te = EncoderEngine(16000, SMALL, backend=backend)
-    td = DecoderEngine(16000, SMALL, backend=backend)
+    te = EncoderEngine(16000, SMALL, backend=backend, device="cpu")
+    td = DecoderEngine(16000, SMALL, backend=backend, device="cpu")
     audio, rec, (jes, jds), ticks = jax_run
     assert _tree_shapes(state_to_numpy(te.init_state(B))) == _tree_shapes(jes)
     assert _tree_shapes(state_to_numpy(td.init_state(B, seed=5))) == \
         _tree_shapes(jds)
-    tes, tds = state_from_numpy(jes), state_from_numpy(jds)
+    tes, tds = state_from_numpy(jes, "cpu"), state_from_numpy(jds, "cpu")
 
     reached = set()
     for t, (jf, jidx, jnoise, ja, jcn, jds) in zip(range(WARM, HOPS), ticks):
@@ -127,19 +127,20 @@ def test_slice_matches_jax_stage_by_stage(jax_run, backend):
 
 def test_dtx_noise_decisions_match_jax():
     je = JaxEncoder(16000, SMALL, enable_dtx=True)
-    te = EncoderEngine(16000, SMALL, enable_dtx=True)
+    te = EncoderEngine(16000, SMALL, enable_dtx=True, device="cpu")
     rng = np.random.default_rng(1)
     hops = 30
     gain = np.where((np.arange(hops) // 5) % 2 == 0, 5000.0, 2.0)
     audio = (rng.normal(0, 1, (hops, B, 320)) * gain[:, None, None]).astype(
         np.float32)
     jes = je.init_state(B)
-    tes = state_from_numpy(jax.tree.map(np.asarray, jes))
+    tes = state_from_numpy(jax.tree.map(np.asarray, jes), "cpu")
     seen = set()
     for t in range(hops):
         # Classify from the JAX pre-tick noise state, so a near-threshold
         # float difference cannot carry into later decisions.
-        tes["noise"] = state_from_numpy(jax.tree.map(np.asarray, jes["noise"]))
+        tes["noise"] = state_from_numpy(
+            jax.tree.map(np.asarray, jes["noise"]), "cpu")
         jidx, jn, jes = je.step(jes, audio[t], NQ)
         tidx, tn, tes = te.step(tes, torch.from_numpy(audio[t]), NQ)
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
@@ -154,10 +155,11 @@ def test_dtx_noise_decisions_match_jax():
 
 def test_max_bitrate_and_int16_emit_are_exact():
     audio, rec = _audio(2, 12), _received(12)
-    enc, enc_cap = EncoderEngine(16000, SMALL), \
-        EncoderEngine(16000, SMALL, max_bitrate=6000)
-    dec = DecoderEngine(16000, SMALL)
-    dec_cap = DecoderEngine(16000, SMALL, max_bitrate=6000, emit_dtype="int16")
+    enc = EncoderEngine(16000, SMALL, device="cpu")
+    enc_cap = EncoderEngine(16000, SMALL, max_bitrate=6000, device="cpu")
+    dec = DecoderEngine(16000, SMALL, device="cpu")
+    dec_cap = DecoderEngine(16000, SMALL, max_bitrate=6000, emit_dtype="int16",
+                            device="cpu")
     es, ecs = enc.init_state(B), enc_cap.init_state(B)
     ds, dcs = dec.init_state(B), dec_cap.init_state(B)
     for t in range(12):
@@ -170,14 +172,15 @@ def test_max_bitrate_and_int16_emit_are_exact():
         assert a_c.dtype == torch.int16
         assert torch.equal(a.to(torch.int16), a_c) and torch.equal(cn, cn_c)
     with pytest.raises(ValueError):
-        EncoderEngine(16000, SMALL, max_bitrate=1234)
+        EncoderEngine(16000, SMALL, max_bitrate=1234, device="cpu")
     with pytest.raises(ValueError):
-        DecoderEngine(44100, SMALL)
+        DecoderEngine(44100, SMALL, device="cpu")
 
 
 def test_reset_rows_matches_jax(jax_engines):
     je, jd = jax_engines
-    te, td = EncoderEngine(16000, SMALL), DecoderEngine(16000, SMALL)
+    te = EncoderEngine(16000, SMALL, device="cpu")
+    td = DecoderEngine(16000, SMALL, device="cpu")
     audio, rec = _audio(3, 6), _received(6)
     jes, jds = je.init_state(B), jd.init_state(B, seed=2)
     for t in range(6):
@@ -186,7 +189,7 @@ def test_reset_rows_matches_jax(jax_engines):
     mask = np.array([False, True, False, True])
     for eng, jeng, st, kw in ((te, je, jes, {}), (td, jd, jds, {"seed": 2})):
         ours = state_to_numpy(eng.reset_rows(
-            state_from_numpy(jax.tree.map(np.asarray, st)),
+            state_from_numpy(jax.tree.map(np.asarray, st), "cpu"),
             torch.from_numpy(mask), **kw))
         ref = jax.tree.map(np.asarray, jeng.reset_rows(st, jnp.asarray(mask),
                                                        **kw))
@@ -199,8 +202,21 @@ def test_reset_rows_matches_jax(jax_engines):
 def test_state_roundtrip_keeps_jax_dtypes(jax_engines):
     _, jd = jax_engines
     st = jax.tree.map(np.asarray, jd.init_state(B, seed=9))
-    back = state_to_numpy(state_from_numpy(st))
+    back = state_to_numpy(state_from_numpy(st, "cpu"))
     jax.tree.map(lambda a, b: (np.testing.assert_array_equal(a, b),
                                np.testing.assert_equal(a.dtype, b.dtype)),
                  back, st)
     assert back["cng"]["ctr"].dtype == np.uint32
+
+
+def test_engines_default_to_the_card():
+    """Without device= an engine runs on the card; on a torch that sees no
+    CUDA device it raises and names device="cpu", never falls back."""
+    if torch.cuda.is_available():
+        assert EncoderEngine(16000, SMALL).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        EncoderEngine(16000, SMALL)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DecoderEngine(16000, SMALL)
+    assert EncoderEngine(16000, SMALL, device="cpu").device.type == "cpu"

@@ -16,11 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from lyra_tpu import config as jax_config
 from lyra_tpu.ops.fused_stack import FusedStackKernel
+from lyra_tpu.tflite import model as jax_tfl
 from lyra_tpu.tflite.executor import load_graph as jax_load_graph
+from lyra_tpu_torch import config
 from lyra_tpu_torch.ops import conv_stack
 from lyra_tpu_torch.ops.fused_stack import FusedStack
 from lyra_tpu_torch.tflite import executor
+from lyra_tpu_torch.tflite import model as tfl
 from lyra_tpu_torch.tflite.executor import load_graph
 
 SMALL = os.path.join(os.path.dirname(__file__), "golden", "synthetic_lyra",
@@ -82,7 +86,8 @@ def _assert_frames_close(got, ref):
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_port_matches_jax_over_50_frames(jax_reference, name, backend):
     path = os.path.join(SMALL, f"{name}.tflite")
-    model = load_graph(path) if backend == "executor" else FusedStack(path)
+    model = (load_graph(path, device="cpu") if backend == "executor"
+             else FusedStack(path, device="cpu"))
     ys, st = _run_port(model, name)
     ref_exec, ref_pallas, ref_state = jax_reference[name]
     _assert_frames_close(ys, ref_exec)
@@ -101,7 +106,7 @@ def test_fused_stack_partition_matches_jax():
     for name in MODELS:
         path = os.path.join(SMALL, f"{name}.tflite")
         j = FusedStackKernel(path, mode="float", interpret=True)
-        t = FusedStack(path)
+        t = FusedStack(path, device="cpu")
         assert t._prologue == j._prologue and t._epilogue == j._epilogue
         assert t._core == j._core
         assert t._core_state_names == j._core_state_names
@@ -143,8 +148,60 @@ def test_conv_wrappers_run_plain_versions_on_cpu():
                                     {"mode": "fakequant"},
                                     {"boundary_store": "f8"}])
 def test_unported_modes_are_refused(kwargs):
-    from lyra_tpu.tflite import model as tfl
-
     mdef = tfl.load(os.path.join(SMALL, "lyragan.tflite"))
     with pytest.raises(NotImplementedError):
-        executor.GraphFn(mdef, **kwargs)
+        executor.GraphFn(mdef, device="cpu", **kwargs)
+
+
+def _assert_same_model(ours, ref):
+    assert ours.signatures == ref.signatures
+    assert ours.description == ref.description
+    assert len(ours.subgraphs) == len(ref.subgraphs)
+    for sg, rsg in zip(ours.subgraphs, ref.subgraphs):
+        assert (sg.name, sg.inputs, sg.outputs) == \
+            (rsg.name, rsg.inputs, rsg.outputs)
+        assert [(op.name, op.inputs, op.outputs, op.options)
+                for op in sg.ops] == \
+            [(op.name, op.inputs, op.outputs, op.options) for op in rsg.ops]
+        assert len(sg.tensors) == len(rsg.tensors)
+        for t, r in zip(sg.tensors, rsg.tensors):
+            assert (t.name, t.shape, t.dtype, t.is_variable) == \
+                (r.name, r.shape, r.dtype, r.is_variable)
+            assert (t.data is None) == (r.data is None), t.name
+            if t.data is not None:
+                assert t.data.dtype == r.data.dtype
+                np.testing.assert_array_equal(t.data, r.data)
+            assert (t.quant is None) == (r.quant is None), t.name
+            if t.quant is not None:
+                np.testing.assert_array_equal(t.quant.scale, r.quant.scale)
+                np.testing.assert_array_equal(t.quant.zero_point,
+                                              r.quant.zero_point)
+                assert t.quant.quantized_dimension == \
+                    r.quant.quantized_dimension
+
+
+@pytest.mark.parametrize("fixture", ["small", "full"])
+def test_copied_parser_and_config_match_jax_package(fixture):
+    """The port's own TFLite parser (tflite/model.py, flatbuffer.py) reads
+    every graph of both fixtures as the JAX package's does, and every
+    public constant of its config copy equals the JAX package's (the
+    default model directory is the environment variable alone in the port,
+    without the JAX package's fallback path)."""
+    root = os.path.join(os.path.dirname(SMALL), fixture)
+    for name in ("soundstream_encoder", "lyragan", "quantizer"):
+        path = os.path.join(root, f"{name}.tflite")
+        _assert_same_model(tfl.load(path), jax_tfl.load(path))
+    names = [n for n in vars(config) if n.isupper()
+             and n != "DEFAULT_MODEL_PATH"]
+    assert len(names) >= 15
+    for n in names:
+        assert getattr(config, n) == getattr(jax_config, n), n
+    for rate in (8000, 16000, 44100, 48000):
+        assert config.is_sample_rate_supported(rate) == \
+            jax_config.is_sample_rate_supported(rate)
+    for bits in (64, 120, 184, 7):
+        assert config.bitrate(bits) == jax_config.bitrate(bits)
+    for rate in (3200, 6000, 9200, 1234):
+        assert config.bitrate_to_num_quantized_bits(rate) == \
+            jax_config.bitrate_to_num_quantized_bits(rate)
+    config.check_params_supported(16000, 1, root)

@@ -50,7 +50,7 @@ def _blocks(in_rate, n_blocks, b=3, seed=0):
 def test_resample_matches_jax_over_20_blocks(rates):
     block = rates[0] // 50
     x = _blocks(rates[0], 20)
-    jr, tr = jax_resampler.Resampler(*rates), Resampler(*rates)
+    jr, tr = jax_resampler.Resampler(*rates), Resampler(*rates, device="cpu")
     np.testing.assert_array_equal(tr._taps, jr._taps)
     np.testing.assert_array_equal(
         design_polyphase_taps(tr.up, tr.down),
@@ -71,7 +71,7 @@ def test_resample_matches_goldens(rates):
     data = np.load(GOLDENS)
     key = f"{rates[0]}_{rates[1]}"
     x, want = data[f"in_{key}"], data[f"out_{key}"]
-    r = Resampler(*rates)
+    r = Resampler(*rates, device="cpu")
     block = rates[0] // 50
     state, got = r.init_state(x.shape[0]), []
     for i in range(x.shape[1] // block):
@@ -86,7 +86,7 @@ def test_resample_matches_goldens(rates):
 
 @pytest.mark.parametrize("rates", PAIRS)
 def test_conv_path_matches_gather_oracle(rates):
-    r = Resampler(*rates)
+    r = Resampler(*rates, device="cpu")
     assert r.up == 1 or r.down == 1  # every supported pair is a pure ratio
     rng = np.random.default_rng(3)
     n_in = 2 * rates[0] // 50
@@ -103,7 +103,7 @@ def test_conv_path_matches_gather_oracle(rates):
 @pytest.mark.parametrize("rates", PAIRS)
 def test_host_paths_match_jax(rates):
     x = _blocks(rates[0], 3, b=1, seed=4)[0]
-    jr, tr = jax_resampler.Resampler(*rates), Resampler(*rates)
+    jr, tr = jax_resampler.Resampler(*rates), Resampler(*rates, device="cpu")
     np.testing.assert_array_equal(tr.resample_np(x), jr.resample_np(x))
     assert tr.samples_until_steady_state() == jr.samples_until_steady_state()
     js = jax_resampler.StreamingResampler(*rates)
@@ -138,7 +138,8 @@ def _dtypes(tree):
 @pytest.mark.parametrize("rate", [8000, 32000, 48000])
 def test_float_engines_at_rate_match_jax(rate):
     je, jd = JaxEncoder(rate, SMALL), JaxDecoder(rate, SMALL)
-    te, td = EncoderEngine(rate, SMALL), DecoderEngine(rate, SMALL)
+    te = EncoderEngine(rate, SMALL, device="cpu")
+    td = DecoderEngine(rate, SMALL, device="cpu")
     assert te.hop_samples == jd.hop_samples == rate // 50
     extract = jax.jit(je.soundstream.extract)
     resample = jax.jit(je.resampler.resample)
@@ -155,7 +156,7 @@ def test_float_engines_at_rate_match_jax(rate):
         if t < WARM:
             continue
         # Encoder, from the JAX pre-tick state: resample → features.
-        tes = state_from_numpy(pre_e)
+        tes = state_from_numpy(pre_e, "cpu")
         x16, _ = resample(pre_e["resampler"], audio[t])
         jf, _ = extract(pre_e["soundstream"], jax_dsp_utils.int16_to_unit(
             jax_dsp_utils.clip_to_int16(x16)))
@@ -170,7 +171,7 @@ def test_float_engines_at_rate_match_jax(rate):
         np.testing.assert_array_equal(tes_new["resampler"].numpy(),
                                       np.asarray(jes["resampler"]))
         # Decoder, from the JAX pre-tick state and the JAX indices.
-        ta, tcn, tds = td.step(state_from_numpy(pre_d),
+        ta, tcn, tds = td.step(state_from_numpy(pre_d, "cpu"),
                                torch.from_numpy(np.array(jidx)),
                                torch.from_numpy(rec[t]))
         assert ta.shape == (B, rate // 50)

@@ -61,7 +61,7 @@ def test_quantize_matches_jax_fast_and_pallas(codebooks, method, seed):
     ref = np.asarray(jrvq.quantize(jnp.asarray(feats), 46, method="fast"))
     pallas = np.asarray(RvqEncodeKernel(codebooks, block_streams=8,
                                         interpret=True)(jnp.asarray(feats)))
-    got = ResidualVectorQuantizer(codebooks).quantize(
+    got = ResidualVectorQuantizer(codebooks, "cpu").quantize(
         torch.from_numpy(feats), 46, method=method).numpy()
     assert got.dtype == np.int32 and got.shape == (8, 46)
     _assert_indices_equal_or_near_tie(got, ref, feats, codebooks)
@@ -70,7 +70,7 @@ def test_quantize_matches_jax_fast_and_pallas(codebooks, method, seed):
 
 def test_quantize_masks_bitrate_and_caps_stages(codebooks):
     feats = torch.from_numpy(_features(2, b=3))
-    rvq = ResidualVectorQuantizer(codebooks)
+    rvq = ResidualVectorQuantizer(codebooks, "cpu")
     jrvq = JaxRvq(codebooks)
     nq = np.array([16, 30, 46], np.int32)
     idx = rvq.quantize(feats, torch.from_numpy(nq)).numpy()
@@ -89,7 +89,7 @@ def test_quantize_masks_bitrate_and_caps_stages(codebooks):
 
 def test_kernel_plain_version_is_the_fast_search(codebooks):
     feats = torch.from_numpy(_features(4))
-    rvq = ResidualVectorQuantizer(codebooks)
+    rvq = ResidualVectorQuantizer(codebooks, "cpu")
     before = rvq_kernel.RVQ.launches
     a = rvq_kernel.rvq_encode(feats, rvq.codebooks, rvq.c2, 20)
     b = rvq_kernel.rvq_encode_plain(feats, rvq.codebooks, rvq.c2, 20)
@@ -107,6 +107,6 @@ def test_decode_matches_jax(codebooks, max_stages):
     idx[:, 30:] = -1
     ref = np.asarray(JaxRvq(codebooks).decode(jnp.asarray(idx),
                                               max_stages=max_stages))
-    got = ResidualVectorQuantizer(codebooks).decode(
+    got = ResidualVectorQuantizer(codebooks, "cpu").decode(
         torch.from_numpy(idx), max_stages=max_stages).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
