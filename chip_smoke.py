@@ -20,13 +20,16 @@ Phases, one line each; any failed check raises and exits nonzero:
               rounds (kernel, plain and one cuDNN call with the weights
               laid out beforehand; eager launches and CUDA-graph
               replays), with each kernel's FLOP, bytes, bound and shares
-              of 67 TFLOP/s FP32 and 3.35 TB/s;
+              of 67 TFLOP/s FP32 and 3.35 TB/s; each depthwise call's
+              launch plan is printed, checked against
+              conv_stack.depthwise_plan, and its two launches must give
+              the same bits;
   3. K1-bf16  the same in bf16 mode: the fused stack vs the plain bf16
               executor and vs the plain f32 one (bar 3e-2 × max|plain|),
               then every bf16 kernel call of one hop at B=1024 vs its
               plain bf16 version (bar 2^-7 × max|ref|, two bf16
-              roundings), timed the same way, with shares of 989 TFLOP/s
-              bf16 and 3.35 TB/s;
+              roundings), timed and checked the same way, with shares of
+              989 TFLOP/s bf16 and 3.35 TB/s;
   4. K2       the RVQ kernel vs its plain version at B=4096: rows may
               differ only at near-ties, at most 0.1% of rows; then timed
               at B=1024 the same way (no single PyTorch call computes the
@@ -37,7 +40,9 @@ Phases, one line each; any failed check raises and exits nonzero:
               single-stream numpy path;
   6. main     the float engines at 16 kHz, 50 ticks at B=1024 with ~10%
               of hops lost, launch counts reset before and read after,
-              kernel names checked in a torch.profiler window, output
+              kernel names checked in a torch.profiler window (which
+              also gives device µs per tick, all kernels and each of the
+              path's), output
               finite at speech level, and the kernel path's decoder vs the
               plain path's on the same indices (within 2 int16 LSB);
   7. main-bf16  the same slice in bf16 mode at 48 kHz (the JAX package's
@@ -154,7 +159,7 @@ def phase_k1(path, batch, dev, stats, gpu):
     from lyra_tpu_torch.tflite.executor import load_graph
 
     rng = np.random.default_rng(1)
-    worst, calls = {}, []
+    worst, calls, plans = {}, [], []
     for name, shape, scale in MODELS:
         p = os.path.join(path, f"{name}.tflite")
         fused, plain = FusedStack(p, device=dev), load_graph(p, device=dev)
@@ -183,6 +188,8 @@ def phase_k1(path, batch, dev, stats, gpu):
             s = stats[kernel.name]
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["calls"] += 1
+            if kernel is conv_stack.DEPTHWISE:
+                plans.append(_depthwise_call(fn, x, w, bias, extra, got))
             lib = partial(_library(kernel.name, w, bias, extra, c_in), x)
             lib_err = (lib().float() - ref.float()).abs().max().item()
             check(lib_err <= tol, f"library {kernel.name}: abs err {lib_err}")
@@ -196,6 +203,7 @@ def phase_k1(path, batch, dev, stats, gpu):
           + ", ".join(f"{k.name} {stats[k.name]['calls']} calls max abs err "
                       f"{stats[k.name]['max_abs_err']:.3e}"
                       for k in conv_stack.KERNELS_F32))
+    _print_depthwise_plans("K1", batch, plans)
     _time_rounds("K1", calls, conv_stack.KERNELS_F32, batch, stats, gpu,
                  PEAK_FP32_FLOPS, "FP32")
 
@@ -208,7 +216,7 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
     from lyra_tpu_torch.tflite.executor import load_graph
 
     rng = np.random.default_rng(4)
-    lines, calls = [], []
+    lines, calls, plans = [], [], []
     for name, shape, scale in MODELS:
         p = os.path.join(path, f"{name}.tflite")
         fused = FusedStack(p, mode="bf16", device=dev)
@@ -249,6 +257,8 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
             s = stats[kernel.name]
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["calls"] += 1
+            if kernel is conv_stack.DEPTHWISE_BF16:
+                plans.append(_depthwise_call(fn, x, w, bias, extra, got))
             lib = partial(_library(kernel.name, w, bias, extra, c_in), x)
             lib_err = (lib().float() - ref.float()).abs().max().item()
             check(lib_err <= tol, f"library {kernel.name}: abs err {lib_err}")
@@ -261,8 +271,44 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
           + ", ".join(f"{k.name} {stats[k.name]['calls']} calls max abs err "
                       f"{stats[k.name]['max_abs_err']:.3e}"
                       for k in conv_stack.KERNELS_BF16))
+    _print_depthwise_plans("K1-bf16", batch, plans)
     _time_rounds("K1-bf16", calls, conv_stack.KERNELS_BF16, batch, stats, gpu,
                  PEAK_BF16_FLOPS, "bf16")
+
+
+def _depthwise_call(fn, x, w, bias, extra, got):
+    """One depthwise kernel call: a second launch on the same inputs must
+    give the same bits, and the plan the launcher took for these operands
+    (lyra_depthwise_plan, given their pointers) must be
+    conv_stack.depthwise_plan's.  Returns the plan, described."""
+    import ctypes
+
+    import torch
+
+    from lyra_tpu_torch.ops import conv_stack
+
+    name = f"depthwise {tuple(x.shape)} d={extra[0]}"
+    check(torch.equal(fn(x, w, bias, *extra), got),
+          f"{name}: two launches differ")
+    b, t_in, c = x.shape
+    k, d = w.shape[0], extra[0]
+    ptrs = [None if t is None else t.data_ptr() for t in (x, w, bias, got)]
+    plan = conv_stack.depthwise_plan(
+        (b, t_in, c), k, d, dtype=x.dtype,
+        aligned=all(p is None or p % 16 == 0 for p in ptrs))
+    out = (ctypes.c_int * 7)()
+    conv_stack._lib().lyra_depthwise_plan(
+        x.element_size(), b, t_in - (k - 1) * d, c, k, d, *ptrs, out)
+    check(tuple(out) == (plan.elems, plan.runs, *plan.block, *plan.grid),
+          f"{name}: launcher plan {tuple(out)} vs {plan}")
+    return (f"({t_in}, {c}, {d}) {'vector' if plan.vec else 'scalar'} "
+            f"{plan.elems}/thread J={plan.runs} block {plan.block} grid "
+            f"{plan.grid}")
+
+
+def _print_depthwise_plans(phase, batch, plans):
+    print(f"{phase} depthwise plans at B={batch}, (T_in, C, dilation), each "
+          f"call's two launches bitwise equal: " + "; ".join(plans))
 
 
 def _library(name, w, bias, extra, c_in):
@@ -298,13 +344,18 @@ def _library(name, w, bias, extra, c_in):
 
 def _work(name, x, w, bias, extra, out):
     """(FLOP, bytes) of one conv call: every input (activations, weights,
-    bias) read once and the output written once, in their element type."""
+    bias) read once and the output written once, in their element type;
+    of a depthwise call's x only the rows some tap reads (where
+    T_out < dilation, 3·T_out of T_in)."""
     b, t_in, _ = x.shape
     nbytes = sum(t.numel() * t.element_size()
                  for t in (x, w, bias, out) if t is not None)
     t_out = out.shape[1]
     if name.startswith("depthwise"):
         k, c = w.shape
+        d = extra[0]
+        rows = len({t + kk * d for t in range(t_out) for kk in range(k)})
+        nbytes -= (t_in - rows) * b * c * x.element_size()
         return 2 * b * t_out * c * k, nbytes
     k, i, o = w.shape
     if name.startswith("transpose"):  # only the taps that land
@@ -339,7 +390,9 @@ def _time_rounds(phase, calls, kernels, batch, stats, gpu, peak_flops,
     call, summed over the hop's `calls` (name, kernel fn, plain fn,
     library fn or None, (FLOP, bytes)), in ROUNDS rounds that alternate
     which goes first; each as eager launches (as the tick makes them) and
-    as CUDA-graph replays (device time, no launch gaps).  Sets stats[name]:
+    as CUDA-graph replays (device time without the host's launch gaps; a
+    call still costs one graph node), and the graph median of each call.
+    Sets stats[name]:
     "ms"/"plain_ms"/"library_ms" the eager medians (library None where
     there is no library call), "graph_ms"/"plain_graph_ms"/
     "library_graph_ms" the graph ones, and "bound_ms"/"bound_by" the least
@@ -357,12 +410,16 @@ def _time_rounds(phase, calls, kernels, batch, stats, gpu, peak_flops,
     names = [k.name for k in kernels]
     ms = {(n, path, how): [] for n in names for path in paths
           for how in ("eager", "graph")}
+    per_call = [[] for _ in calls]  # the kernel's graph ms, each round
     for r in range(ROUNDS):
         for path in paths[::1 if r % 2 == 0 else -1]:
             for how in ("eager", "graph"):
                 tot = dict.fromkeys(names, 0.0)
-                for (name, *_), timer in zip(calls, timers):
-                    tot[name] += timer[path][how]()
+                for i, ((name, *_), timer) in enumerate(zip(calls, timers)):
+                    t = timer[path][how]()
+                    tot[name] += t
+                    if (path, how) == ("kernel", "graph"):
+                        per_call[i].append(t)
                 for n in names:
                     ms[(n, path, how)].append(tot[n])
     del timers
@@ -393,9 +450,12 @@ def _time_rounds(phase, calls, kernels, batch, stats, gpu, peak_flops,
             for how, suffix in (("eager", "ms"), ("graph", "graph_ms")):
                 st[key + suffix] = (float(np.median(ms[(n, path, how)]))
                                     if path in paths else None)
+        each = " ".join(f"{np.median(t) * 1e3:.1f}"
+                        for c, t in zip(calls, per_call) if c[0] == n)
         out.append(f"{n} ({st['calls']} calls, {flop / 1e9:.3f} GFLOP, "
                    f"{nbytes / 1e6:.1f} MB in+out, bound {st['bound_ms']:.4f} "
-                   f"ms by {st['bound_by']}): " + "; ".join(parts))
+                   f"ms by {st['bound_by']}): " + "; ".join(parts)
+                   + f"; graph µs per call, in hop order: {each}")
     print(f"{phase} timing: per hop at B={batch}, medians (min-max) of "
           f"{ROUNDS} alternating rounds of {ROUND_REPS} calls each, shares "
           f"of {peak_flops / 1e12:.0f} TFLOP/s {peak_name} and "
@@ -577,15 +637,21 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     check(300.0 <= rms <= 15000.0, f"main path: RMS {rms} not speech-level")
 
     events = prof.key_averages()
-    cuda_names = [e.key for e in events
-                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    # Device µs of each CUDA kernel name in the window.
+    dev_us = {e.key: e.self_device_time_total for e in events
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    cuda_names = list(dev_us)
     check(bool(cuda_names), "profiler recorded no CUDA events")
     # A kernel's own name, not a longer one that contains it (demangled
     # "ns::conv1d_fwd(" or mangled "10conv1d_fwdE").
-    seen = {k.name: any(re.search(rf"(?<![A-Za-z_]){k.name}(?![a-z0-9_])", n)
-                        for n in cuda_names)
-            for k in kernels}
+    def own(k, n):
+        return re.search(rf"(?<![A-Za-z_]){k.name}(?![a-z0-9_])", n)
+
+    seen = {k.name: any(own(k, n) for n in cuda_names) for k in kernels}
     check(all(seen.values()), f"profiler: kernels missing {seen}")
+    # Per tick, each of the path's kernels summed over its instances.
+    per_tick = {k.name: sum(t for n, t in dev_us.items() if own(k, n)) / 3
+                for k in kernels}
     if profile_file:
         os.makedirs(os.path.dirname(profile_file), exist_ok=True)
         with open(profile_file, "w") as f:
@@ -595,7 +661,9 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         f"of hops lost, audio RMS {rms:.1f} (int16), {cn_count} "
         f"comfort-noise stream-hops; launches "
         f"{ {k.name: launches[k.name] for k in kernels} }; kernel names in "
-        f"profiler: {', '.join(seen)}")
+        f"profiler: {', '.join(seen)}; device µs per tick (last 3 ticks): "
+        f"all {sum(dev_us.values()) / 3:.1f}, "
+        + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items()))
 
 
 def phase_main(path, batch, ticks, dev, profile_out):

@@ -20,10 +20,12 @@ accumulate in float32 and round once on store (the Pallas kernel's bf16
 mode).  conv1d and the transpose conv run as implicit GEMMs in both
 dtypes — on the tensor cores in bf16, as register-tiled FFMA in f32 —
 whose tile the launcher picks per call (`gemm_tile`, `conv1d_plan`,
-`transpose_conv1d_plan` below describe that choice).  A CUDA tensor
-launches the kernel of its dtype (and counts the launch); a CPU tensor runs
-the plain version, which is the executor's torch lowering
-(tflite/executor.py) in the input's dtype.  Anything else raises.
+`transpose_conv1d_plan` below describe that choice); the depthwise conv
+gives each thread 16 bytes of channels and a run of outputs, also chosen
+per call (`depthwise_plan`).  A CUDA tensor launches the kernel of its
+dtype (and counts the launch); a CPU tensor runs the plain version, which
+is the executor's torch lowering (tflite/executor.py) in the input's
+dtype.  Anything else raises.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.lyra_conv_gemm_tile.argtypes = [i, i, i]
     lib.lyra_conv_gemm_tile.restype = ctypes.c_int
+    lib.lyra_depthwise_plan.argtypes = [i] * 6 + [p] * 4 + [ctypes.POINTER(i)]
+    lib.lyra_depthwise_plan.restype = None
     return lib
 
 
@@ -99,7 +103,9 @@ def _on_cuda(x: torch.Tensor, *operands: Optional[torch.Tensor]) -> bool:
 
 def _launch(which: int, x: torch.Tensor, *args) -> None:
     """Launch kernel `which` (0 conv1d, 1 depthwise, 2 transpose conv) of
-    x's dtype with `args`, check the launch and count it."""
+    x's dtype with `args`, check the launch and count it: one count per
+    call, also where the depthwise launcher splits more than 65535 streams
+    over several grids."""
     counter = BY_DTYPE[x.dtype][which]
     err = getattr(_lib(), f"lyra_{counter.name}")(
         *args, cuda_build.stream_handle(x.device))
@@ -180,6 +186,49 @@ def transpose_conv1d_plan(x_shape, w_shape, stride: int, t_out: int, *,
     ch = _chunk(dtype)
     return _plan(b * -(-t_out // stride), o, stride,
                  i % ch == 0 and o % ch == 0)
+
+
+# -- launch plan of the depthwise kernels ---------------------------------------
+# The launchers choose it themselves (lyra_depthwise_plan reports their
+# choice for given operands); this is the same rule in Python, for the tests
+# (tests/test_torch_cuda.py holds the two equal on the card).
+
+DW_THREADS = 256  # most threads per block
+DW_TAPS = 3  # the taps of every Lyra depthwise conv
+DW_RUN = 2  # J for k = DW_TAPS; other k run J = 1
+
+
+class DepthwisePlan(NamedTuple):
+    # 16-byte loads and stores of `elems` channels per thread (8 bf16 or 4
+    # floats), else one channel per thread.
+    vec: bool
+    elems: int
+    phases: int  # min(dilation, T_out): output t belongs to phase t mod d
+    runs: int  # J: outputs t = p + (r·J + j)·d, j < J, of thread (·, r)
+    block: Tuple[int, int]  # (lanes, runs): lane = (phase, channel vector)
+    grid: Tuple[int, int, int]  # (lane blocks, run blocks, B)
+
+
+def depthwise_plan(x_shape, k: int, dilation: int, *, dtype: torch.dtype,
+                   aligned: bool = True) -> DepthwisePlan:
+    """depthwise_conv1d_fwd (f32) or depthwise_conv1d_fwd_bf16 on
+    x [B, T_in, C] with k taps; `aligned`: x, w, bias and out all start on
+    16 bytes, which the vector path needs beside C.  A block takes up to
+    DW_THREADS lanes (phase, channel vector) along x and fills the rest of
+    DW_THREADS with runs along y."""
+    b, t_in, c = x_shape
+    t_out = t_in - (k - 1) * dilation
+    vec = aligned and c % _chunk(dtype) == 0
+    elems = _chunk(dtype) if vec else 1
+    j = DW_RUN if k == DW_TAPS else 1
+    phases = min(dilation, t_out)
+    lanes = phases * (c // elems)
+    per_phase = -(-t_out // dilation)  # outputs of phase 0
+    n_runs = -(-per_phase // j)
+    bx = min(lanes, DW_THREADS)
+    by = min(DW_THREADS // bx, n_runs)
+    return DepthwisePlan(vec, elems, phases, j, (bx, by),
+                         (-(-lanes // bx), -(-n_runs // by), b))
 
 
 # -- plain versions (the executor's lowering on [B, T, 1, C], in x's dtype) --

@@ -18,9 +18,23 @@
 // Pallas _depthwise sums its K taps in bf16 (fused_stack.py:742-745); this
 // depthwise kernel sums them in f32, which is at least as exact.
 //
-// Depthwise kernels: one output element per thread with f32 FMAs;
-// consecutive threads take consecutive channels, so weight reads coalesce.
-// They are bound by bytes (K ≤ 3 taps per output).
+// Depthwise kernels (depthwise_body, one template for both element types):
+// a depthwise conv has no reduction across channels, so there is nothing
+// for the tensor cores; each output is K = 3 FMAs.  The first design (one
+// output per thread, four 64-bit divisions to find it, 3 + 3 scalar loads)
+// was bound by instruction issue: the bf16 kernel, half the bytes, took
+// the time of the f32 one.  Now a thread owns 16 bytes of channels (4
+// floats or 8 bf16; one channel where C or a pointer does not allow it)
+// of one phase p < d and computes a run of J outputs t = p + j·d, so a
+// window of 3 rows in registers hands each row it loads to all 3 taps;
+// the weights and bias stay in registers, and the thread's one division
+// splits its x index into phase and channel vector.  Per hop of the
+// full-width fixture at B=1024 the 18 calls need 184 MB in f32 (92 in
+// bf16: where T_out < d a call reads 3·T_out of its T_in rows).  Timed as
+// CUDA-graph replays on an NVIDIA H100 80GB HBM3 at 700 W, LyraGAN's nine
+// calls take 3-4 µs each in either element type, a per-call floor: the
+// hop is bound by the count of launches more than by its bytes (PERF.md
+// §6).
 //
 // conv1d and transpose conv, both element types: implicit GEMMs.  The
 // first design (one output per thread, two global loads per FMA, nothing
@@ -113,16 +127,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDepthwiseThreads = 256;
-
-inline unsigned int blocks_for(long long total) {
-  return static_cast<unsigned int>((total + kDepthwiseThreads - 1) /
-                                   kDepthwiseThreads);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -132,42 +136,283 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// DEPTHWISE_CONV_2D over time, VALID, stride 1, dilation d:
-//   out[b, t, c] = bias[c] + sum_k x[b, t + k*d, c] * w[k, c]
-template <typename T>
-__device__ __forceinline__ void depthwise_conv1d_body(
-    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ out, int B, int T_in, int C, int T_out, int K,
-    int dilation) {
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long total = static_cast<long long>(B) * T_out * C;
-  if (idx >= total) return;
-  const int c = static_cast<int>(idx % C);
-  const long long bt = idx / C;
-  const int t = static_cast<int>(bt % T_out);
-  const long long b = bt / T_out;
-  const T* xr = x + (b * T_in + t) * C + c;
-  float acc = bias != nullptr ? to_f32(bias[c]) : 0.0f;
-  for (int k = 0; k < K; ++k) {
-    acc = fmaf(to_f32(xr[static_cast<long long>(k) * dilation * C]),
-               to_f32(w[k * C + c]), acc);
-  }
-  out[idx] = from_f32<T>(acc);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
-#define LYRA_DEPTHWISE_KERNEL(SUFFIX, T)                                       \
-  __global__ void depthwise_conv1d_fwd##SUFFIX(                                \
-      const T* __restrict__ x, const T* __restrict__ w,                        \
-      const T* __restrict__ bias, T* __restrict__ out, int B, int T_in, int C, \
-      int T_out, int K, int dilation) {                                        \
-    depthwise_conv1d_body<T>(x, w, bias, out, B, T_in, C, T_out, K,            \
-                             dilation);                                        \
+// N consecutive floats from / to an address aligned to min(N, 4) floats.
+template <int N>
+__device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z,
+      v[4 * q + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = p[e];
   }
+}
 
-LYRA_DEPTHWISE_KERNEL(, float)
-LYRA_DEPTHWISE_KERNEL(_bf16, bf16)
+template <int N>
+__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = v[e];
+  }
+}
 
-#undef LYRA_DEPTHWISE_KERNEL
+// N floats to p as bf16, each rounded once: 16-byte stores where N is a
+// multiple of 8 (p then 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void store_floats(bf16* p, const float (&v)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      uint4 t;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(v[8 * q + 2 * e], v[8 * q + 2 * e + 1]);
+      reinterpret_cast<uint4*>(p)[q] = t;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = __float2bfloat16_rn(v[e]);
+  }
+}
+
+// -- depthwise (depthwise_conv1d_fwd*) ----------------------------------------
+
+constexpr int kDwThreads = 256;  // most threads per block
+constexpr int kDwTaps = 3;       // the taps of every Lyra depthwise conv
+// J, the outputs per thread for K = kDwTaps (other K run J = 1): of the
+// constant runs 1, 2, 4 and 8, 2 took the least time over a hop of the
+// full-width fixture at B=1024 in both element types (PERF.md §6).
+constexpr int kDwRun = 2;
+constexpr int kMaxGridYZ = 65535;
+
+// One launch's operands; phases = min(dilation, T_out).
+template <typename T>
+struct DwArgs {
+  const T* x;
+  const T* w;
+  const T* bias;
+  T* out;
+  int T_in, C, T_out, K, dilation, phases;
+};
+
+// V consecutive elements at p as floats, through the read-only data path:
+// one 16-byte load where V elements are 16 bytes (p then 16-byte aligned).
+template <int V>
+__device__ __forceinline__ void ldg_vec(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = __ldg(p + e);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ldg_vec(float (&v)[V], const bf16* p) {
+  if constexpr (V == 8) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      v[2 * q] = f.x, v[2 * q + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = __bfloat162float(__ldg(p + e));
+  }
+}
+
+// DEPTHWISE_CONV_2D over time, VALID, stride 1, dilation d:
+//   out[b, t, c] = bias[c] + Σ_k x[b, t + k·d, c] · w[k, c]
+// Thread (f, r) of grid layer b = blockIdx.z (the stream), f along x and r
+// along y, owns phase p = f / (C/V) < phases and the V channels c = (f mod
+// C/V)·V, and computes the run of outputs t = p + (r·J + j)·d < T_out,
+// j < J.  Output
+// t + d needs rows t + d .. t + K·d, so a window of K rows slides by one
+// row per output: a run of n outputs loads n + K − 1 rows, each once.
+// Each accumulator starts at f32(bias) and takes k = 0 .. K−1 in order
+// with fmaf.  KT is K at compile time; KT = 0 takes K at run time (J = 1,
+// weights read per tap).
+template <typename T, int V, int J, int KT>
+__device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
+  const int nv = a.C / V;
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (f >= a.phases * nv) return;
+  const int p = f / nv;  // the thread's one division
+  const int c = (f - p * nv) * V;
+  const int t = p + r * J * a.dilation;
+  if (t >= a.T_out) return;  // also every r past the last run
+  const int step = a.dilation * a.C;  // one tap, or one output, further
+  const T* x = a.x + static_cast<long long>(blockIdx.z) * a.T_in * a.C +
+               t * a.C + c;
+  T* out = a.out + static_cast<long long>(blockIdx.z) * a.T_out * a.C +
+           t * a.C + c;
+  float bias[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) bias[e] = 0.0f;
+  if (a.bias != nullptr) ldg_vec<V>(bias, a.bias + c);
+
+  if constexpr (KT == 0) {
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = bias[e];
+    for (int k = 0; k < a.K; ++k) {
+      float xv[V], wv[V];
+      ldg_vec<V>(xv, x + k * step);
+      ldg_vec<V>(wv, a.w + k * a.C + c);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(xv[e], wv[e], acc[e]);
+    }
+    store_floats<V>(out, acc);
+  } else {
+    int n = 0;  // outputs in this run
+#pragma unroll
+    for (int j = 0; j < J; ++j) n += t + j * a.dilation < a.T_out;
+    float w[KT][V], win[KT][V];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) ldg_vec<V>(w[k], a.w + k * a.C + c);
+#pragma unroll
+    for (int k = 0; k + 1 < KT; ++k) ldg_vec<V>(win[k], x + k * step);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (j < n) ldg_vec<V>(win[KT - 1], x + (j + KT - 1) * step);
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[e] = bias[e];
+#pragma unroll
+        for (int k = 0; k < KT; ++k) acc[e] = fmaf(win[k][e], w[k][e], acc[e]);
+      }
+      if (j < n) store_floats<V>(out + j * step, acc);
+#pragma unroll
+      for (int k = 0; k + 1 < KT; ++k)
+#pragma unroll
+        for (int e = 0; e < V; ++e) win[k][e] = win[k + 1][e];
+    }
+  }
+}
+
+// V channels per thread (16 bytes, or 1), J outputs per run, KT taps.
+template <int V, int J, int KT>
+__global__ void __launch_bounds__(kDwThreads)
+    depthwise_conv1d_fwd(const DwArgs<float> a) {
+  depthwise_body<float, V, J, KT>(a);
+}
+
+template <int V, int J, int KT>
+__global__ void __launch_bounds__(kDwThreads)
+    depthwise_conv1d_fwd_bf16(const DwArgs<bf16> a) {
+  depthwise_body<bf16, V, J, KT>(a);
+}
+
+template <int V, int J, int KT>
+void launch_dw(const DwArgs<float>& a, dim3 grid, dim3 block,
+               cudaStream_t st) {
+  depthwise_conv1d_fwd<V, J, KT><<<grid, block, 0, st>>>(a);
+}
+
+template <int V, int J, int KT>
+void launch_dw(const DwArgs<bf16>& a, dim3 grid, dim3 block,
+               cudaStream_t st) {
+  depthwise_conv1d_fwd_bf16<V, J, KT><<<grid, block, 0, st>>>(a);
+}
+
+struct DwPlan {
+  int elems;     // V, channels per thread
+  int runs;      // J, outputs per thread
+  int block[2];  // (phase × channel-vector lanes, runs)
+  int grid[3];   // (lane blocks, run blocks, streams)
+};
+
+// The launch of a depthwise call of elem_bytes-byte elements
+// (conv_stack.py:depthwise_plan is the same rule).  V is 16 bytes of
+// channels where C allows it and x, w, bias and out are 16-byte aligned,
+// else 1.  Lanes = (phase, channel vector) pairs; a block takes up to
+// kDwThreads of them along x and fills the rest of its kDwThreads with
+// runs along y, so a stream with few lanes still makes full blocks, and a
+// warp reads whole rows.
+DwPlan depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
+                      int dilation, const void* x, const void* w,
+                      const void* bias, const void* out) {
+  const int ch = 16 / elem_bytes;
+  DwPlan plan;
+  plan.elems = C % ch == 0 && aligned16(x) && aligned16(w) &&
+                       aligned16(out) && (bias == nullptr || aligned16(bias))
+                   ? ch
+                   : 1;
+  plan.runs = K == kDwTaps ? kDwRun : 1;
+  const int phases = dilation < T_out ? dilation : T_out;
+  const int lanes = phases * (C / plan.elems);
+  const int per_phase = (T_out + dilation - 1) / dilation;  // phase 0's
+  const int n_runs = (per_phase + plan.runs - 1) / plan.runs;
+  plan.block[0] = lanes < kDwThreads ? lanes : kDwThreads;
+  plan.block[1] = kDwThreads / plan.block[0];
+  if (plan.block[1] > n_runs) plan.block[1] = n_runs;
+  plan.grid[0] = (lanes + plan.block[0] - 1) / plan.block[0];
+  plan.grid[1] = (n_runs + plan.block[1] - 1) / plan.block[1];
+  plan.grid[2] = B;
+  return plan;
+}
+
+template <typename T, int V>
+int launch_depthwise_v(DwArgs<T> a, const DwPlan& plan, int B,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // Streams beyond the grid's z limit go in further launches.
+  for (int b0 = 0; b0 < B; b0 += kMaxGridYZ) {
+    const int nb = B - b0 < kMaxGridYZ ? B - b0 : kMaxGridYZ;
+    const dim3 grid(plan.grid[0], plan.grid[1], nb);
+    const dim3 block(plan.block[0], plan.block[1]);
+    if (a.K == kDwTaps)
+      launch_dw<V, kDwRun, kDwTaps>(a, grid, block, st);
+    else
+      launch_dw<V, 1, 0>(a, grid, block, st);
+    a.x += static_cast<long long>(nb) * a.T_in * a.C;
+    a.out += static_cast<long long>(nb) * a.T_out * a.C;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_depthwise(const T* x, const T* w, const T* bias, T* out, int B,
+                     int T_in, int C, int T_out, int K, int dilation,
+                     void* stream) {
+  if (B <= 0 || T_out <= 0 || C <= 0)
+    return static_cast<int>(cudaGetLastError());
+  // Offsets inside one stream are 32-bit; so are the run's row offsets.
+  if (static_cast<long long>(T_in) * C > 0x7fffffffLL ||
+      (T_out + dilation - 1) / dilation > kMaxGridYZ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int phases = dilation < T_out ? dilation : T_out;
+  const DwArgs<T> a{x, w, bias, out, T_in, C, T_out, K, dilation, phases};
+  const DwPlan plan = depthwise_plan(sizeof(T), B, T_out, C, K, dilation, x,
+                                     w, bias, out);
+  constexpr int ch = 16 / sizeof(T);
+  if (plan.elems == ch) return launch_depthwise_v<T, ch>(a, plan, B, stream);
+  return launch_depthwise_v<T, 1>(a, plan, B, stream);
+}
 
 // -- implicit GEMM (conv1d_fwd*, transpose_conv1d_fwd*) -----------------------
 
@@ -234,40 +479,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// N consecutive floats from / to an address aligned to min(N, 4) floats.
-template <int N>
-__device__ __forceinline__ void load_floats(float (&v)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z,
-      v[4 * q + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) v[e] = p[e];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q)
-      reinterpret_cast<float4*>(p)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) p[e] = v[e];
-  }
 }
 
 // Math policy of the bf16 kernels: mma.sync on 4 warps, WM × WN warps each
@@ -648,10 +859,6 @@ int launch_gemm(const GemmArgs<bf16>& a, dim3 grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
-}
-
 // Index into kTileBM/kTileBN of the tile for a GEMM of M rows, N columns
 // and z groups or phases (conv_stack.py:gemm_tile is the same rule).
 int gemm_tile(int M, int N, int z) {
@@ -717,6 +924,18 @@ extern "C" {
 
 int lyra_conv_gemm_tile(int M, int N, int z) { return gemm_tile(M, N, z); }
 
+// The plan the depthwise launcher takes for these operands: writes V, J,
+// the block and the grid to plan[0..6].
+void lyra_depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
+                         int dilation, const void* x, const void* w,
+                         const void* bias, const void* out, int* plan) {
+  const DwPlan p = depthwise_plan(elem_bytes, B, T_out, C, K, dilation, x, w,
+                                  bias, out);
+  const int v[7] = {p.elems,    p.runs,     p.block[0], p.block[1],
+                    p.grid[0],  p.grid[1],  p.grid[2]};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+}
+
 #define LYRA_GEMM_LAUNCHERS(SUFFIX, T)                                         \
   int lyra_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, T* out,  \
                               int B, int T_in, int C_in, int T_out, int O,    \
@@ -743,13 +962,8 @@ LYRA_GEMM_LAUNCHERS(_bf16, __nv_bfloat16)
                                         T* out, int B, int T_in, int C,        \
                                         int T_out, int K, int dilation,        \
                                         void* stream) {                        \
-    long long total = static_cast<long long>(B) * T_out * C;                   \
-    if (total > 0) {                                                           \
-      depthwise_conv1d_fwd##SUFFIX<<<blocks_for(total), kDepthwiseThreads, 0,  \
-                                     static_cast<cudaStream_t>(stream)>>>(     \
-          x, w, bias, out, B, T_in, C, T_out, K, dilation);                    \
-    }                                                                          \
-    return static_cast<int>(cudaGetLastError());                               \
+    return launch_depthwise<T>(x, w, bias, out, B, T_in, C, T_out, K,          \
+                               dilation, stream);                              \
   }
 
 LYRA_DEPTHWISE_LAUNCHER(, float)

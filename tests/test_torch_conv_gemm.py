@@ -1,8 +1,9 @@
-"""The index maps of the implicit-GEMM conv kernels, on the CPU.
+"""The index maps of the conv-stack kernels, on the CPU.
 
-conv1d_fwd / transpose_conv1d_fwd (f32, FFMA micro-tiles) and their _bf16
-versions (tensor cores) in ops/csrc/conv_stack.cu run only on the card;
-what they compute rests on two maps that numpy can check here:
+conv1d_fwd / transpose_conv1d_fwd (f32, FFMA micro-tiles), their _bf16
+versions (tensor cores) and depthwise_conv1d_fwd(_bf16) in
+ops/csrc/conv_stack.cu run only on the card; what they compute rests on
+three maps that numpy can check here:
 
   (a) the transpose conv as `stride` per-phase GEMMs: output phase p owns
       the rows t = j·s + p < t_out, its q_p = ceil((K − p)/s) taps are
@@ -16,7 +17,22 @@ what they compute rests on two maps that numpy can check here:
       output element of every conv call of both fixtures exactly once, at
       B ∈ {1, 64, 1024}, within 48 KB of static shared memory, and the
       scalar-load path is taken exactly for the shapes the 16-byte path
-      (8 bf16 or 4 floats) cannot take.
+      (8 bf16 or 4 floats) cannot take;
+  (c) the depthwise launchers' thread map (conv_stack.depthwise_plan; held
+      to the launchers on the card the same way): a thread owns one phase
+      p < min(d, T_out) and one vector of V channels (16 bytes, or 1
+      channel) and computes the run of outputs t = p + (r·J + j)·d < T_out,
+      j < J, of its grid layer r, sliding a window of K rows by one row per
+      output.  Walking its threads as the kernel does, for every depthwise
+      call of both fixtures at B ∈ {1, 3, 64} in both element types' plans
+      and for ragged shapes, checks that every output is written exactly
+      once, that a run loads each of its rows once, all inside [0, T_in),
+      and that the result equals the port's plain version and the JAX
+      package's DEPTHWISE_CONV_2D lowering (lyra_tpu/tflite/executor.py
+      `_depthwise_conv2d`) on the same inputs.
+These walks check numpy copies of the kernels' index maps; the kernels
+themselves are held to the plain versions, and through them to JAX, only
+on the card (tests/test_torch_cuda.py).
 """
 
 import functools
@@ -26,14 +42,17 @@ import numpy as np
 import pytest
 import torch
 
+from lyra_tpu.tflite.executor import _depthwise_conv2d as jax_depthwise
 from lyra_tpu.tflite.executor import _transpose_conv as jax_transpose_conv
 from lyra_tpu_torch.ops import conv_stack
 from lyra_tpu_torch.ops.fused_stack import FusedStack
-from test_torch_cuda import FULL_CONV1D, FULL_TCONV
+from test_torch_cuda import (FULL_CONV1D, FULL_DEPTHWISE, FULL_TCONV,
+                             RAGGED_DEPTHWISE)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "golden", "synthetic_lyra")
 MODELS = ("soundstream_encoder", "lyragan")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+REL_TOL = 1e-5
 
 
 def phase_gemm_transpose_conv(x, w, bias, stride, t_out):
@@ -205,3 +224,185 @@ def test_f32_vector_path_shapes():
     # LyraGAN's T_out = 1 convs at B=1024: 32×32 tiles fill the card.
     plan = conv_stack.conv1d_plan((1024, 1, 256), (1, 256, 256), 1, dtype=f32)
     assert plan.block == (32, 32) and plan.grid == (32, 8, 1)
+
+
+# -- (c) the depthwise kernels' thread map ----------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _depthwise_calls(fixture):
+    """(T_in, C, dilation, K) of every depthwise call of one hop of both
+    graphs of `fixture`, in graph order."""
+    calls = []
+    for model in MODELS:
+        fused = FusedStack(os.path.join(FIXTURES, fixture, f"{model}.tflite"),
+                           device="cpu")
+        for launch in fused.conv_launches():
+            if launch.plain is conv_stack.depthwise_conv1d_plain:
+                calls.append((*launch.in_shape, *launch.extra,
+                              launch.w.shape[0]))
+    return calls
+
+
+def test_full_fixture_depthwise_list_matches_the_fixture():
+    calls = _depthwise_calls("full")
+    assert all(k == 3 for *_, k in calls)
+    assert [c[:3] for c in calls] == FULL_DEPTHWISE
+
+
+def walk_plan(x, w, bias, dilation, plan):
+    """out [B, T_out, C] as the kernel's threads compute it under `plan`:
+    a thread loads the first K − 1 rows of its run into a window, then one
+    row more per output, and takes the output's K taps from the window.
+    Checks that every output is written exactly once and that a run of n
+    outputs loads n + K − 1 distinct rows, all inside [0, T_in).  All
+    streams share one thread layout (grid z = stream)."""
+    b, t_in, c = x.shape
+    k = w.shape[0]
+    t_out = t_in - (k - 1) * dilation
+    v, j_run = plan.elems, plan.runs
+    nv = c // v
+    bx, by = plan.block
+    assert bx * by <= conv_stack.DW_THREADS and plan.grid[2] == b
+    f = np.arange(plan.grid[0] * bx)  # threads along x: lanes
+    f = f[f < plan.phases * nv]
+    assert len(f) == plan.phases * nv  # every (phase, vector) has a thread
+    p, cv = np.divmod(f, nv)
+    ch = cv[:, None] * v + np.arange(v)  # [threads, V]
+    out = np.zeros((b, t_out, c), np.float32)
+    hits = np.zeros((t_out, c), np.int32)
+    for r in range(plan.grid[1] * by):  # threads along y: runs
+        t0 = p + r * j_run * dilation
+        n = sum((t0 + j * dilation < t_out).astype(int) for j in range(j_run))
+        live = n > 0  # t0 < T_out
+        tl, nl, chl = t0[live], n[live], ch[live]
+        rows = []  # per load: the row each thread loaded, −1 where none
+
+        def load(m, mask):
+            row = np.where(mask, tl + m * dilation, -1)
+            rows.append(row)
+            return x[:, np.maximum(row, 0)[:, None], chl]  # [B, threads, V]
+
+        win = [load(m, nl > 0) for m in range(k - 1)]
+        for j in range(j_run):
+            ok = j < nl
+            win.append(load(j + k - 1, ok))
+            acc = np.broadcast_to(bias[chl], win[0].shape).copy()
+            for kk in range(k):  # ascending taps, as the kernel's fmaf chain
+                acc += win[j + kk] * w[kk, chl]
+            t = tl[ok] + j * dilation
+            out[:, t[:, None], chl[ok]] = acc[:, ok]
+            np.add.at(hits, (t[:, None], chl[ok]), 1)
+        rows = np.sort(np.stack(rows, 1), 1)  # [threads, J + K − 1]
+        assert ((rows >= 0).sum(1) == nl + k - 1).all()
+        assert (rows < t_in).all()
+        assert not ((rows[:, 1:] == rows[:, :-1]) & (rows[:, 1:] >= 0)).any()
+    assert (hits == 1).all(), "an output written other than once"
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _operands(b, t_in, c, dilation, k):
+    rng = np.random.default_rng(t_in * 1000 + c * 10 + dilation + 7 * k + b)
+    x = rng.normal(size=(b, t_in, c)).astype(np.float32)
+    w = rng.normal(size=(k, c)).astype(np.float32)
+    bias = rng.normal(size=(c,)).astype(np.float32)
+    return x, w, bias
+
+
+@functools.lru_cache(maxsize=None)
+def _references(b, t_in, c, dilation, k):
+    """(plain, JAX) outputs on the seeded operands of one call."""
+    x, w, bias = _operands(b, t_in, c, dilation, k)
+    plain = conv_stack.depthwise_conv1d_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+        dilation).numpy()
+    # The JAX lowering: NHWC input, TFLite weight [1, K, 1, C].
+    jx = np.asarray(jax_depthwise(
+        x[:, :, None, :], w[None, :, None, :], bias,
+        {"padding": "VALID", "stride_h": 1, "stride_w": 1,
+         "dilation_h": dilation, "dilation_w": 1}))[:, :, 0, :]
+    return plain, jx
+
+
+def _check_call(b, t_in, c, dilation, k, dtype, aligned=True):
+    x, w, bias = _operands(b, t_in, c, dilation, k)
+    plan = conv_stack.depthwise_plan(x.shape, k, dilation, dtype=dtype,
+                                     aligned=aligned)
+    chunk = 16 // dtype.itemsize  # 8 bf16 or 4 floats
+    assert plan.vec == (aligned and c % chunk == 0)
+    assert plan.elems == (chunk if plan.vec else 1)
+    assert plan.runs == (conv_stack.DW_RUN if k == conv_stack.DW_TAPS else 1)
+    got = walk_plan(x, w, bias, dilation, plan)
+    plain, jx = _references(b, t_in, c, dilation, k)
+    assert got.shape == plain.shape == jx.shape
+    tol = REL_TOL * np.abs(plain).max()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, jx, rtol=0, atol=tol)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("fixture", ["small", "full"])
+def test_depthwise_plan_walk_matches_plain_and_jax(fixture, batch, dtype):
+    for t_in, c, dilation, k in _depthwise_calls(fixture):
+        _check_call(batch, t_in, c, dilation, k, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", RAGGED_DEPTHWISE)
+def test_depthwise_plan_walk_ragged(shape, dtype):
+    t_in, c, dilation, k = shape
+    for batch in (1, 3):
+        _check_call(batch, t_in, c, dilation, k, DTYPES[dtype])
+    # A misaligned operand: the same shape, one channel per thread.
+    _check_call(3, t_in, c, dilation, k, DTYPES[dtype], aligned=False)
+
+
+def test_depthwise_plan_rule():
+    f32, bf16 = torch.float32, torch.bfloat16
+    # SoundStream stage 0 at d = 1 at B=1024: 16 float4 or 8 bf16 vectors
+    # per row, 40 outputs in 20 runs of 2; a block holds 256 threads or all
+    # of a stream's runs.
+    plan = conv_stack.depthwise_plan((1024, 42, 64), 3, 1, dtype=f32)
+    assert (plan.elems, plan.phases, plan.runs) == (4, 1, 2)
+    assert plan.block == (16, 16) and plan.grid == (1, 2, 1024)
+    plan = conv_stack.depthwise_plan((1024, 42, 64), 3, 1, dtype=bf16)
+    assert (plan.elems, plan.block, plan.grid) == (8, (8, 20), (1, 1, 1024))
+    # A pointer off 16 bytes: one channel per thread, the same runs.
+    plan = conv_stack.depthwise_plan((1024, 42, 64), 3, 1, dtype=f32,
+                                     aligned=False)
+    assert (plan.vec, plan.elems, plan.runs) == (False, 1, 2)
+    assert plan.block == (64, 4) and plan.grid == (1, 5, 1024)
+    # d = 9, T_out = 40: 9 phases of 5 or 4 outputs, so 3 runs of 2.
+    plan = conv_stack.depthwise_plan((1024, 58, 64), 3, 9, dtype=f32)
+    assert (plan.phases, plan.runs) == (9, 2)
+    assert plan.block == (144, 1) and plan.grid == (1, 3, 1024)
+    # LyraGAN's T_out = 1 at d = 9: one phase, a run of one output.
+    plan = conv_stack.depthwise_plan((1024, 19, 256), 3, 9, dtype=f32)
+    assert (plan.phases, plan.block, plan.grid) == (1, (64, 1), (1, 1, 1024))
+    # J does not depend on the batch.
+    for shape, d in (((3, 58, 64), 9), ((64, 42, 64), 1), ((1, 22, 256), 9)):
+        assert conv_stack.depthwise_plan(shape, 3, d, dtype=f32).runs == 2
+    # More than 256 lanes split along x: T_out = 8 < d, 8 phases of 64.
+    plan = conv_stack.depthwise_plan((8, 26, 256), 3, 9, dtype=f32)
+    assert (plan.phases, plan.block, plan.grid) == (8, (256, 1), (2, 1, 8))
+    # K ≠ 3 takes its taps at run time, one output per thread.
+    plan = conv_stack.depthwise_plan((1024, 50, 64), 5, 2, dtype=f32)
+    assert plan.runs == 1 and plan.block == (32, 8)
+    assert plan.grid == (1, 3, 1024)
+
+
+def test_depthwise_vector_path_shapes():
+    """f32 moves 4 floats per 16 bytes, so C a multiple of 4 but not of 8
+    takes the vector path in f32 and one channel per thread in bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert conv_stack.depthwise_plan((4, 10, 12), 3, 1, dtype=f32).vec
+    assert not conv_stack.depthwise_plan((4, 10, 12), 3, 1, dtype=bf16).vec
+    for c in (6, 20, 36):
+        assert not conv_stack.depthwise_plan((4, 10, c), 3, 1,
+                                             dtype=bf16).vec
+    for c in (8, 16, 32, 64, 128, 256):  # every width of both fixtures
+        for dtype in (f32, bf16):
+            assert conv_stack.depthwise_plan((4, 10, c), 3, 1,
+                                             dtype=dtype).vec

@@ -11,6 +11,7 @@ lacks.)
 chip_smoke.py runs the same comparisons at the full fixture's widths.
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -65,6 +66,21 @@ RAGGED_TCONV = [
     (9, 16, 52, 24, 4, 70),  # K = 52, s = 4, cropped
     (3, 6, 4, 10, 2, 7),  # I and O not multiples of 8
     (4, 8, 1, 8, 2, 7),  # K < s: phase 1 has no taps (bias only)
+]
+# depthwise: (T_in, C, dilation), K = 3 taps, SoundStream then LyraGAN.
+FULL_DEPTHWISE = [
+    (42, 64, 1), (46, 64, 3), (58, 64, 9),
+    (10, 128, 1), (14, 128, 3), (26, 128, 9),
+    (6, 256, 1), (10, 256, 3), (22, 256, 9),
+    (3, 256, 1), (7, 256, 3), (19, 256, 9),
+    (4, 128, 1), (8, 128, 3), (20, 128, 9),
+    (6, 64, 1), (10, 64, 3), (22, 64, 9),
+]
+# (T_in, C, dilation, K): C that no 16-byte vector divides (or only in
+# f32), T_out = 1 at d = 9, and K ≠ 3 (taps taken at run time).
+RAGGED_DEPTHWISE = [
+    (13, 6, 1, 3), (29, 12, 3, 3), (40, 20, 2, 3), (22, 36, 9, 3),
+    (19, 64, 9, 3), (19, 6, 9, 3), (12, 16, 2, 2), (30, 32, 3, 5),
 ]
 
 
@@ -375,3 +391,100 @@ def test_launcher_tile_matches_planner(cuda):
                   for t_in, i, k, o, s, t_out in FULL_TCONV + RAGGED_TCONV]
         for plan in plans:
             assert lib.lyra_conv_gemm_tile(*plan.dims) == plan.tile, plan
+
+
+def _dw_operands(shape, batch, dev, dtype):
+    t_in, c, dilation, k = (*shape, 3)[:4]
+    rng = np.random.default_rng(t_in * 100 + c + dilation)
+    x = _t(rng.normal(size=(batch, t_in, c)), dev).to(dtype)
+    w = _t(rng.normal(0.0, 3 ** -0.5, (k, c)), dev).to(dtype)
+    return x, w, _t(rng.normal(size=(c,)), dev).to(dtype), dilation
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_DEPTHWISE + RAGGED_DEPTHWISE)
+def test_depthwise_f32_matches_plain(cuda, shape, batch):
+    x, w, b, d = _dw_operands(shape, batch, cuda, torch.float32)
+    n = conv_stack.DEPTHWISE.launches
+    _close_f32(conv_stack.depthwise_conv1d(x, w, b, d),
+               conv_stack.depthwise_conv1d_plain(x, w, b, d))
+    assert conv_stack.DEPTHWISE.launches == n + 1
+
+
+@pytest.mark.parametrize("batch", [3, 1024])
+@pytest.mark.parametrize("shape", FULL_DEPTHWISE + RAGGED_DEPTHWISE)
+def test_depthwise_bf16_matches_plain(cuda, shape, batch):
+    x, w, b, d = _dw_operands(shape, batch, cuda, torch.bfloat16)
+    n = conv_stack.DEPTHWISE_BF16.launches
+    _close_bf16(conv_stack.depthwise_conv1d(x, w, b, d),
+                conv_stack.depthwise_conv1d_plain(x, w, b, d))
+    assert conv_stack.DEPTHWISE_BF16.launches == n + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_scalar_path_on_misaligned_x(cuda, dtype):
+    """x a contiguous view whose storage offset is not 16-byte aligned:
+    the launcher takes one channel per thread."""
+    x, w, b, d = _dw_operands((46, 64, 3), 64, cuda, dtype)
+    buf = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    got = conv_stack.depthwise_conv1d(xm, w, b, d)
+    assert torch.equal(got, conv_stack.depthwise_conv1d(x, w, b, d))
+    ref = conv_stack.depthwise_conv1d_plain(x, w, b, d)
+    (_close_f32 if dtype == torch.float32 else _close_bf16)(got, ref)
+
+
+def test_depthwise_kernels_are_deterministic(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FULL_DEPTHWISE:
+            x, w, b, d = _dw_operands(shape, 1024, cuda, dtype)
+            assert torch.equal(conv_stack.depthwise_conv1d(x, w, b, d),
+                               conv_stack.depthwise_conv1d(x, w, b, d)), shape
+
+
+def test_depthwise_launch_counters(cuda):
+    x, w, b, d = _dw_operands((14, 16, 3), 4, cuda, torch.bfloat16)
+    counters = conv_stack.KERNELS
+    before = [k.launches for k in counters]
+    conv_stack.depthwise_conv1d(x, w, b, d)
+    conv_stack.depthwise_conv1d(x.float(), w.float(), b.float(), d)
+    want = [n + (k in (conv_stack.DEPTHWISE, conv_stack.DEPTHWISE_BF16))
+            for k, n in zip(counters, before)]
+    assert [k.launches for k in counters] == want
+
+
+def test_launcher_depthwise_plan_matches_planner(cuda):
+    """The plan the launcher takes for given operands, aligned or with x a
+    view off 16 bytes, is conv_stack.depthwise_plan's."""
+    lib = conv_stack._lib()
+    out = (ctypes.c_int * 7)()
+    for batch in (1, 3, 64, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in FULL_DEPTHWISE + RAGGED_DEPTHWISE:
+                t_in, c, d, k = (*shape, 3)[:4]
+                x, w, b, _ = _dw_operands(shape, batch, cuda, dtype)
+                t_out = t_in - (k - 1) * d
+                o = torch.empty((batch, t_out, c), device=cuda, dtype=dtype)
+                for aligned in (True, False):
+                    xp = x.data_ptr() + (0 if aligned else x.element_size())
+                    plan = conv_stack.depthwise_plan(
+                        (batch, t_in, c), k, d, dtype=dtype, aligned=aligned)
+                    lib.lyra_depthwise_plan(x.element_size(), batch, t_out,
+                                            c, k, d, xp, w.data_ptr(),
+                                            b.data_ptr(), o.data_ptr(), out)
+                    assert tuple(out) == (plan.elems, plan.runs, *plan.block,
+                                          *plan.grid), (shape, batch, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_batch_past_the_grid_limit(cuda, dtype):
+    """More streams than grid z holds (65535) go in further launches of
+    one wrapper call, which the counter counts once."""
+    x, w, b, d = _dw_operands((5, 8, 1), 70000, cuda, dtype)
+    n = conv_stack.BY_DTYPE[dtype][1].launches
+    got = conv_stack.depthwise_conv1d(x, w, b, d)
+    assert conv_stack.BY_DTYPE[dtype][1].launches == n + 1
+    ref = conv_stack.depthwise_conv1d_plain(x, w, b, d)
+    (_close_f32 if dtype == torch.float32 else _close_bf16)(got, ref)
