@@ -33,7 +33,9 @@ Phases, one line each; any failed check raises and exits nonzero:
   4. K2       the RVQ kernel vs its plain version at B=4096: rows may
               differ only at near-ties, at most 0.1% of rows; then timed
               at B=1024 the same way (no single PyTorch call computes the
-              search, so it has no library time);
+              search, so it has no library time), and as single launches
+              after an L2 flush (cold) and after a spin (warm), with the
+              SM clock sampled by nvidia-smi while it is timed;
   5. rates    the resampler on the card vs tests/golden/resampler_goldens
               .npz at all six rate pairs (bar 0.05 at int16 scale), then a
               B=1024, 50-hop streaming run at 16↔48 kHz vs the
@@ -42,7 +44,7 @@ Phases, one line each; any failed check raises and exits nonzero:
               of hops lost, launch counts reset before and read after,
               kernel names checked in a torch.profiler window (which
               also gives device µs per tick, all kernels and each of the
-              path's), output
+              path's; the SM clock is sampled over the 50 ticks), output
               finite at speech level, and the kernel path's decoder vs the
               plain path's on the same indices (within 2 int16 LSB);
   7. main-bf16  the same slice in bf16 mode at 48 kHz (the JAX package's
@@ -57,9 +59,10 @@ path from the plain f32 path on the same inputs, measured in the same
 phase (both numbers are printed).
 Then one JSON line with every kernel (per hop at B=1024: kernel, plain
 and library time as eager medians in ms/plain_ms/library_ms and as
-graph-replay medians in graph_ms/plain_graph_ms/library_graph_ms, bound
-and what sets it, launches on the main paths), the card's name and power
-limit, and as the last line
+graph-replay medians in graph_ms/plain_graph_ms/library_graph_ms, the
+cold-L2 single launch in cold_ms where measured, bound and what sets it,
+launches on the main paths), the card's name and power limit, and as the
+last line
 {"ok": true, "device": {...}}.
 
 Exits nonzero without printing a result when CUDA is unavailable.
@@ -88,6 +91,8 @@ ROUNDS, ROUND_REPS = 7, 10  # kernel timing: alternating rounds, calls each
 # H100 SXM data sheet: FP32 outside the tensor cores, bf16 tensor cores, HBM.
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 67e12, 989e12, 3.35e12
 GOLDEN_TOL = 0.05  # resampler vs goldens, int16 scale (the JAX test's bar)
+FLUSH_BYTES = 256 << 20  # written between cold launches: > 50 MB of L2
+SPIN_CYCLES = 200_000  # the warm launches' wait, about as long as a flush
 BATCH, TICKS = 1024, 50  # the main path's streams and ticks
 RATE_BF16 = 48000  # the bf16 main path's fleet rate
 # The two graphs of the fused stack: input shape per stream, input scale.
@@ -134,6 +139,45 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class ClockSampler:
+    """nvidia-smi's SM clock (MHz) every 20 ms while the block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.mhz = [int(v) for v in out.split() if v.isdigit()]
+
+    def summary(self) -> str:
+        if not self.mhz:
+            return "SM clock: no sample"
+        return (f"SM clock {min(self.mhz)}-{max(self.mhz)} MHz, median "
+                f"{np.median(self.mhz):.0f}, {len(self.mhz)} samples")
+
+
+def single_launch_ms(fn, before, reps: int = 20) -> float:
+    """Median ms of `reps` single calls of fn, each between its own CUDA
+    events, each right after `before()` on the same stream."""
+    import torch
+
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
 def phase_build():
@@ -510,12 +554,25 @@ def phase_k2(rvq, batch, dev, stats, gpu):
     stages = cb.shape[0]
     flop = batch * stages * (cb.shape[1] * 2 * 64 + 64)
     nbytes = 4 * (x.numel() + cb.numel() + c2.numel() + batch * stages)
-    _time_rounds("K2", [("rvq_encode",
-                         partial(rvq_kernel.rvq_encode, x, cb, c2, stages),
-                         partial(rvq_kernel.rvq_encode_plain, x, cb, c2,
-                                 stages), None, (flop, nbytes))],
-                 rvq_kernel.KERNELS, batch, stats, gpu, PEAK_FP32_FLOPS,
-                 "FP32")
+    kernel = partial(rvq_kernel.rvq_encode, x, cb, c2, stages)
+    with ClockSampler() as clocks:
+        _time_rounds("K2", [("rvq_encode", kernel,
+                             partial(rvq_kernel.rvq_encode_plain, x, cb, c2,
+                                     stages), None, (flop, nbytes))],
+                     rvq_kernel.KERNELS, batch, stats, gpu, PEAK_FP32_FLOPS,
+                     "FP32")
+        # As the tick finds it: after other work has evicted the codebooks
+        # from L2 (the flush), against the same single launch warm.
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        cold = single_launch_ms(kernel, partial(flush.fill_, 1))
+        warm = single_launch_ms(kernel, partial(torch.cuda._sleep,
+                                                SPIN_CYCLES))
+        del flush
+    s["cold_ms"] = cold
+    print(f"K2 single launches at B={batch}, medians of 20: cold (after "
+          f"writing {FLUSH_BYTES >> 20} MB) {cold:.4f} ms, warm (after a "
+          f"spin) {warm:.4f} ms; eager {s['ms']:.4f} ms, graph "
+          f"{s['graph_ms']:.4f} ms; {clocks.summary()} [{gpu}]")
 
 
 def phase_rates(batch, dev):
@@ -610,18 +667,19 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     every = conv_stack.KERNELS + rvq_kernel.KERNELS
     for k in every:
         k.launches = 0
-    for t in range(ticks):
-        if t == prof_window.start:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-        out, cn, es, ds, _ = _tick(enc, dec, es, ds, audio[t], received[t],
-                                   num_bits)
-        outs.append(out)
-        cn_count += int(cn.sum().item())
-    torch.cuda.synchronize()
-    prof.__exit__(None, None, None)
+    with ClockSampler() as clocks:
+        for t in range(ticks):
+            if t == prof_window.start:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            out, cn, es, ds, _ = _tick(enc, dec, es, ds, audio[t],
+                                       received[t], num_bits)
+            outs.append(out)
+            cn_count += int(cn.sum().item())
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
     launches = {k.name: k.launches for k in every}
     for k in kernels:
         check(launches[k.name] > 0, f"main path never launched {k.name}")
@@ -663,7 +721,8 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         f"{ {k.name: launches[k.name] for k in kernels} }; kernel names in "
         f"profiler: {', '.join(seen)}; device µs per tick (last 3 ticks): "
         f"all {sum(dev_us.values()) / 3:.1f}, "
-        + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items()))
+        + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items())
+        + f"; over the {ticks} ticks {clocks.summary()}")
 
 
 def phase_main(path, batch, ticks, dev, profile_out):
@@ -848,7 +907,8 @@ def main(argv=None) -> int:
 
     phase_build()
     kernels = conv_stack.KERNELS + rvq_kernel.KERNELS
-    stats = {k.name: {"max_abs_err": 0.0, "calls": 0} for k in kernels}
+    stats = {k.name: {"max_abs_err": 0.0, "calls": 0, "cold_ms": None}
+             for k in kernels}
     phase_k1(path, BATCH, dev, stats, gpu)
     phase_k1_bf16(path, BATCH, dev, stats, gpu)
     phase_k2(ResidualVectorQuantizer.from_model_path(path, dev), BATCH, dev,
@@ -860,16 +920,17 @@ def main(argv=None) -> int:
         launches[name] = launches.get(name, 0) + n
     phase_timing(path, BATCH, dev, gpu)
 
-    # Per hop at B=1024: eager medians, then graph-replay medians.  The
-    # conv kernels' library call is one cuDNN call (TF32 off) with the
-    # weights laid out beforehand; no single PyTorch call computes the RVQ
-    # search.
+    # Per hop at B=1024: eager medians, then graph-replay medians, and the
+    # RVQ kernel's cold-L2 single launch.  The conv kernels' library call
+    # is one cuDNN call (TF32 off) with the weights laid out beforehand; no
+    # single PyTorch call computes the RVQ search.
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          **{key: stats[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "graph_ms", "plain_graph_ms", "library_graph_ms")}}
+             "library_ms", "graph_ms", "plain_graph_ms", "library_graph_ms",
+             "cold_ms")}}
         for k in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

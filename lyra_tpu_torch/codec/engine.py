@@ -15,7 +15,10 @@ new tree and leave the input tree untouched.
 conv-stack kernels and the RVQ search through its kernel; on CPU tensors
 those wrappers run their plain versions.  `backend="plain"` runs the
 executor lowering and the `"fast"` RVQ search — the plain reference on
-either device.
+either device.  The JAX engines' names map onto these (`BACKEND_NAMES`):
+`"fused"`, the JAX kernel path, is `"kernel"`, and `"xla"`, the JAX per-op
+lowering, is `"plain"`.  The constructors take the JAX engines' parameters
+in the JAX order; `device` is keyword-only.
 
 `mode` is "float" or "bf16" (the JAX package's serving mode: the conv
 stacks compute in bf16 and the decoder's RVQ decode rounds the codebooks
@@ -29,9 +32,10 @@ a card the default raises (utils/device.py), so CPU callers pass
 
 Differences from the JAX engines: int8 and fakequant modes, int8 state
 storage and fp8 boundaries are not ported and are refused; comfort noise
-is always synthesized (the JAX engine skips it with a `lax.cond` when no
-stream needs it — the masked result is bit-identical, and testing `any()`
-on the host would cost a device sync every tick).
+is always synthesized, so `gate_idle_stages` is accepted and changes no
+bit (the JAX engine skips it with a `lax.cond` when no stream needs it —
+the masked result is bit-identical, and testing `any()` on the host would
+cost a device sync every tick).
 """
 
 from __future__ import annotations
@@ -53,7 +57,6 @@ from lyra_tpu_torch.dsp import utils as dsp_utils
 from lyra_tpu_torch.dsp.resampler import Resampler
 from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
 from lyra_tpu_torch.models.streaming import (
-    BACKENDS,
     LyraGanModel,
     SoundStreamEncoder,
     mask_tree,
@@ -76,6 +79,13 @@ _ESTIMATORS = {
     "last_frame": LastFrameFeatureEstimator,
     "decaying": DecayingFeatureEstimator,
 }
+# Every backend name the engines take → the port's backend.
+BACKEND_NAMES = {
+    "kernel": "kernel",
+    "plain": "plain",
+    "fused": "kernel",  # the JAX kernel path
+    "xla": "plain",  # the JAX per-op lowering
+}
 
 
 def has_model_assets(model_path: str) -> bool:
@@ -85,11 +95,14 @@ def has_model_assets(model_path: str) -> bool:
 
 
 def _checked_common(sample_rate_hz: int, model_path: str, backend: str,
-                    mode: str, state_compression, boundary_store) -> None:
+                    mode: str, state_compression, boundary_store) -> str:
+    """Checks the parameters both engines share; returns the port's
+    backend for `backend`."""
     config.check_params_supported(sample_rate_hz, config.NUM_CHANNELS,
                                   model_path)
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend not in BACKEND_NAMES:
+        raise ValueError(f"backend must be one of {sorted(BACKEND_NAMES)}, "
+                         f"got {backend!r}")
     compute_dtype(mode)  # float and bf16; int8 / fakequant raise
     if state_compression is not None:
         raise NotImplementedError(
@@ -97,6 +110,7 @@ def _checked_common(sample_rate_hz: int, model_path: str, backend: str,
     if boundary_store is not None:
         raise NotImplementedError(
             "boundary_store: fp8 boundary storage is not ported")
+    return BACKEND_NAMES[backend]
 
 
 def _resampler(input_rate: int, target_rate: int, device):
@@ -132,15 +146,18 @@ class DecoderEngine:
 
     def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
                  model_path: str = config.DEFAULT_MODEL_PATH,
-                 backend: str = "kernel",
+                 mode: str = "float", backend: str = "kernel",
                  feature_estimator: str = "zero",
                  max_bitrate: int | None = None,
-                 emit_dtype: str = "float32", device=None,
-                 mode: str = "float",
+                 gate_idle_stages: bool = True,
                  state_compression: str | None = None,
-                 boundary_store: str | None = None):
-        _checked_common(sample_rate_hz, model_path, backend, mode,
-                        state_compression, boundary_store)
+                 boundary_store: str | None = None,
+                 emit_dtype: str = "float32", *, device=None):
+        backend = _checked_common(sample_rate_hz, model_path, backend, mode,
+                                  state_compression, boundary_store)
+        if not isinstance(gate_idle_stages, bool):
+            raise TypeError(f"gate_idle_stages must be a bool, got "
+                            f"{gate_idle_stages!r}")
         if emit_dtype not in ("float32", "int16"):
             raise ValueError(
                 f"emit_dtype must be 'float32' or 'int16', got {emit_dtype!r}")
@@ -149,6 +166,7 @@ class DecoderEngine:
                 f"unknown feature_estimator {feature_estimator!r}; "
                 f"choose from {sorted(_ESTIMATORS)}")
         self.device = device = resolve(device)
+        self.backend = backend
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self._emit_int16 = emit_dtype == "int16"
@@ -270,14 +288,14 @@ class EncoderEngine:
 
     def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
                  model_path: str = config.DEFAULT_MODEL_PATH,
-                 enable_dtx: bool = False, backend: str = "kernel",
-                 max_bitrate: int | None = None,
-                 device=None, mode: str = "float",
+                 enable_dtx: bool = False, mode: str = "float",
+                 backend: str = "kernel", max_bitrate: int | None = None,
                  state_compression: str | None = None,
-                 boundary_store: str | None = None):
-        _checked_common(sample_rate_hz, model_path, backend, mode,
-                        state_compression, boundary_store)
+                 boundary_store: str | None = None, *, device=None):
+        backend = _checked_common(sample_rate_hz, model_path, backend, mode,
+                                  state_compression, boundary_store)
         self.device = device = resolve(device)
+        self.backend = backend
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self.enable_dtx = enable_dtx

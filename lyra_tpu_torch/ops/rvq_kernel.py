@@ -2,19 +2,24 @@
 
 Replaces `lyra_tpu/ops/rvq_kernel.py::RvqEncodeKernel` (the
 `pl.pallas_call` at rvq_kernel.py:65).  The CUDA source is
-ops/csrc/rvq_encode.cu; see there for what bounds it on the card.
+ops/csrc/rvq_encode.cu; see there for what bounds it on the card and the
+lane map (lane 2k + h: codeword k, feature half h).
 
 `rvq_encode(features [B, F], codebooks [S, 16, F], c2 [S, 16], run_stages)`
 returns `[B, run_stages]` int32 stage indices.  A CUDA tensor launches the
 kernel (and counts the launch); a CPU tensor runs the plain version, which
 is `quantize(method="fast")`'s search: argmin ‖c‖² − 2·r·c per stage, lowest
 index on ties, then subtract the chosen codeword.
+
+`rvq_plan` is the launcher's grid rule (`lyra_rvq_plan` in the .cu; change
+both together, tests/test_torch_cuda.py holds them equal).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +30,24 @@ RVQ = cuda_build.KernelCounter(
     "lyra_tpu/ops/rvq_kernel.py:65")
 KERNELS = (RVQ,)
 _FEATURES, _CODES = 64, 16  # compiled into rvq_encode.cu
+RVQ_MAX_WARPS = 16  # kMaxWarps: warps (streams in flight) per block
+# kStageBytes: a stage's codewords and ||c||² in shared memory, + its mbarrier
+RVQ_STAGE_BYTES = (_CODES * _FEATURES + _CODES) * 4 + 8
+
+
+class RvqPlan(NamedTuple):
+    warps: int  # per block; warp w of block g takes streams g·W + w + j·G·W
+    blocks: int
+    smem: int  # dynamic shared bytes per block
+
+
+def rvq_plan(batch: int, run_stages: int, sms: int) -> RvqPlan:
+    """W = ceil(B / SMs) warps per block, at most RVQ_MAX_WARPS, and
+    min(ceil(B / W), SMs) blocks, so every SM works once B ≥ SMs and a
+    larger batch loops inside the warps."""
+    warps = min(RVQ_MAX_WARPS, max(1, -(-batch // sms)))
+    return RvqPlan(warps, min(-(-batch // warps), sms),
+                   run_stages * RVQ_STAGE_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,6 +56,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lyra_rvq_encode.argtypes = [p, p, p, p, i, i, p]
     lib.lyra_rvq_encode.restype = ctypes.c_int
+    lib.lyra_rvq_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.lyra_rvq_plan.restype = None
     return lib
 
 
@@ -69,6 +94,9 @@ def rvq_encode(features: torch.Tensor, codebooks: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError("RVQ kernel takes contiguous float32 tensors "
                              "on one device")
+    if codebooks.data_ptr() % 16 or c2.data_ptr() % 16:
+        raise ValueError("RVQ kernel copies the codebooks and c2 in 16-byte "
+                         "chunks: their data must be 16-byte aligned")
     out = torch.empty((b, run_stages), device=features.device,
                       dtype=torch.int32)
     err = _lib().lyra_rvq_encode(

@@ -135,18 +135,89 @@ def test_transpose_conv_kernel_matches_plain(cuda, stride, k, t_out):
         rtol=1e-5, atol=1e-4)
 
 
-def test_rvq_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    cb = _t(rng.normal(0, 0.5, (46, 16, 64)), cuda)
+def _rvq_operands(dev, batch, seed=0):
+    rng = np.random.default_rng(seed)
+    cb = _t(rng.normal(0, 0.5, (46, 16, 64)), dev)
     c2 = (cb * cb).sum(-1).contiguous()
-    feats = _t(rng.normal(size=(777, 64)), cuda)
+    return _t(rng.normal(size=(batch, 64)), dev), cb, c2
+
+
+def _assert_rvq_near_ties(got, ref, feats, cb, c2):
+    """At most 0.1 % of rows differ, and each first differs at a near-tie
+    of the plain search's scores (1e-5 relative, in float64)."""
+    rows = torch.nonzero((got != ref).any(dim=1)).flatten().tolist()
+    assert len(rows) <= got.shape[0] // 1000, len(rows)
+    for r in rows:
+        s = int(torch.nonzero(got[r] != ref[r])[0].item())
+        resid = feats[r].double() - cb[torch.arange(s, device=cb.device),
+                                       ref[r, :s].long()] \
+            .double().sum(0)
+        top = torch.sort(c2[s].double() - 2.0 * cb[s].double() @ resid) \
+            .values[:2]
+        assert (top[1] - top[0]).item() < 1e-5 * max(abs(top[0].item()), 1.0)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 777, 1024, 4096, 70000])
+def test_rvq_kernel_matches_plain(cuda, batch):
+    feats, cb, c2 = _rvq_operands(cuda, batch)
     n = rvq_kernel.RVQ.launches
     got = rvq_kernel.rvq_encode(feats, cb, c2, 46)
     assert rvq_kernel.RVQ.launches == n + 1
-    ref = rvq_kernel.rvq_encode_plain(feats, cb, c2, 46)
-    assert (got != ref).any(dim=1).float().mean().item() <= 0.001
-    assert torch.equal(rvq_kernel.rvq_encode(feats, cb, c2, 16),
-                       got[:, :16])
+    assert got.shape == (batch, 46) and got.dtype == torch.int32
+    _assert_rvq_near_ties(got, rvq_kernel.rvq_encode_plain(feats, cb, c2, 46),
+                          feats, cb, c2)
+
+
+def test_rvq_kernel_exact_ties_pick_the_lowest_k(cuda):
+    """Duplicated codewords give exactly equal scores (the dot's order
+    depends on no lane), so the argmin must return the first copy."""
+    feats, cb, c2 = _rvq_operands(cuda, 4096, seed=1)
+    first = torch.tensor([[k % 8 for k in range(16)],  # even stages
+                          [min(k, 15 - k) for k in range(16)]], device=cuda)
+    first = first[torch.arange(46, device=cuda) % 2]  # [46, 16]
+    cb = cb[torch.arange(46, device=cuda)[:, None], first].contiguous()
+    c2 = (cb * cb).sum(-1).contiguous()
+    got = rvq_kernel.rvq_encode(feats, cb, c2, 46)
+    assert int(got.max().item()) <= 7
+    # The plain search's pick, mapped to the first copy of its codeword.
+    ref = rvq_kernel.rvq_encode_plain(feats, cb, c2, 46).long()
+    ref = first[torch.arange(46, device=cuda), ref].to(torch.int32)
+    _assert_rvq_near_ties(got, ref, feats, cb, c2)
+
+
+def test_rvq_kernel_is_deterministic_and_stage_prefixes_agree(cuda):
+    feats, cb, c2 = _rvq_operands(cuda, 4096, seed=2)
+    full = rvq_kernel.rvq_encode(feats, cb, c2, 46)
+    assert torch.equal(rvq_kernel.rvq_encode(feats, cb, c2, 46), full)
+    for stages in (1, 16, 30):
+        assert torch.equal(rvq_kernel.rvq_encode(feats, cb, c2, stages),
+                           full[:, :stages]), stages
+
+
+def test_rvq_launch_counter_and_alignment(cuda):
+    feats, cb, c2 = _rvq_operands(cuda, 8)
+    n = rvq_kernel.RVQ.launches
+    rvq_kernel.rvq_encode(feats, cb, c2, 46)
+    rvq_kernel.rvq_encode(feats, cb, c2, 3)
+    rvq_kernel.rvq_encode(feats.cpu(), cb.cpu(), c2.cpu(), 46)  # plain
+    assert rvq_kernel.RVQ.launches == n + 2
+    buf = torch.empty(cb.numel() + 1, device=cuda)
+    off = buf[1:].view(cb.shape)  # contiguous, 4 bytes off 16
+    off.copy_(cb)
+    with pytest.raises(ValueError, match="16-byte"):
+        rvq_kernel.rvq_encode(feats, off, c2, 46)
+    assert rvq_kernel.RVQ.launches == n + 2
+
+
+def test_launcher_rvq_plan_matches_planner(cuda):
+    lib = rvq_kernel._lib()
+    out = (ctypes.c_int * 3)()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for batch in (1, 3, 777, 1024, 4096, 16384, 70000):
+        for stages in (1, 16, 46):
+            for n_sm in (sms, 132, 7):
+                lib.lyra_rvq_plan(batch, stages, n_sm, out)
+                assert tuple(out) == rvq_kernel.rvq_plan(batch, stages, n_sm)
 
 
 @pytest.mark.parametrize("name,shape", [("soundstream_encoder", (320,)),

@@ -13,6 +13,7 @@ float drift cannot flip a discrete decision:
   * is_comfort_noise and the PLC counters: equal.
 """
 
+import inspect
 import os
 
 import jax
@@ -21,12 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from lyra_tpu import config as jax_config
 from lyra_tpu import packet as jax_packet
 from lyra_tpu.codec.engine import DecoderEngine as JaxDecoder
 from lyra_tpu.codec.engine import EncoderEngine as JaxEncoder
 from lyra_tpu.dsp import utils as jax_dsp_utils
-from lyra_tpu_torch import packet
-from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+from lyra_tpu_torch import config, packet
+from lyra_tpu_torch.codec.engine import (
+    BACKEND_NAMES,
+    DecoderEngine,
+    EncoderEngine,
+)
 from lyra_tpu_torch.dsp import utils as dsp_utils
 from lyra_tpu_torch.utils.state import state_from_numpy, state_to_numpy
 
@@ -220,3 +226,70 @@ def test_engines_default_to_the_card():
     with pytest.raises(RuntimeError, match='device="cpu"'):
         DecoderEngine(16000, SMALL)
     assert EncoderEngine(16000, SMALL, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("engines", [(DecoderEngine, JaxDecoder),
+                                     (EncoderEngine, JaxEncoder)])
+def test_constructors_take_the_jax_parameters_in_order(engines):
+    """The same parameters in the same order with the same defaults, but
+    for `backend` (the port's "kernel", JAX's "xla") and the port's
+    keyword-only `device`; `model_path` defaults to each package's
+    config.DEFAULT_MODEL_PATH."""
+    ours, ref = (inspect.signature(e.__init__).parameters for e in engines)
+    assert list(ours)[:-1] == list(ref)
+    for name, p in ref.items():
+        assert ours[name].kind == p.kind, name
+        if name not in ("backend", "model_path"):
+            assert ours[name].default == p.default, name
+    assert ours["backend"].default == "kernel"
+    assert ours["model_path"].default == config.DEFAULT_MODEL_PATH
+    assert ref["model_path"].default == jax_config.DEFAULT_MODEL_PATH
+    assert ours["device"].kind == inspect.Parameter.KEYWORD_ONLY
+    assert ours["device"].default is None
+
+
+def test_positional_mode_and_jax_backend_names():
+    dec = DecoderEngine(16000, SMALL, "bf16", device="cpu")
+    assert dec._decode_dtype == torch.bfloat16 and dec.backend == "kernel"
+    enc = EncoderEngine(16000, SMALL, False, "bf16", "xla", device="cpu")
+    assert enc.backend == "plain" and enc._rvq_method == "fast"
+    assert BACKEND_NAMES == {"kernel": "kernel", "plain": "plain",
+                             "fused": "kernel", "xla": "plain"}
+    for name, port in BACKEND_NAMES.items():
+        assert EncoderEngine(16000, SMALL, backend=name,
+                             device="cpu").backend == port
+        assert DecoderEngine(16000, SMALL, backend=name,
+                             device="cpu").backend == port
+    for engine in (EncoderEngine, DecoderEngine):
+        with pytest.raises(ValueError) as err:
+            engine(16000, SMALL, backend="pallas", device="cpu")
+        assert all(repr(n) in str(err.value) for n in BACKEND_NAMES)
+    with pytest.raises(TypeError):
+        DecoderEngine(16000, SMALL, gate_idle_stages="yes", device="cpu")
+
+
+def test_gate_idle_stages_changes_no_bit():
+    """The port always synthesizes comfort noise, so both values give the
+    same ticks, through concealment, the fade and comfort noise (the JAX
+    package pins the same equality for its gate:
+    test_codec_engine.py::test_idle_stage_gating_is_bit_identical)."""
+    hops = 16
+    audio = _audio(4, hops)
+    rec = np.ones((hops, B), bool)
+    rec[3:13, ::2] = False  # 10 lost hops: concealment, fade, comfort noise
+    enc = EncoderEngine(16000, SMALL, device="cpu")
+    decs = [DecoderEngine(16000, SMALL, gate_idle_stages=g, device="cpu")
+            for g in (True, False)]
+    es = enc.init_state(B)
+    ds = [d.init_state(B, seed=3) for d in decs]
+    fades = set()
+    for t in range(hops):
+        idx, _, es = enc.step(es, torch.from_numpy(audio[t]), NQ)
+        outs = []
+        for i, d in enumerate(decs):
+            a, cn, ds[i] = d.step(ds[i], idx, torch.from_numpy(rec[t]))
+            outs.append((a, cn))
+        assert torch.equal(outs[0][0], outs[1][0]), t
+        assert torch.equal(outs[0][1], outs[1][1]), t
+        fades.update(ds[0]["fade"].tolist())
+    assert {0, 640} <= fades and fades - {0, 640}, fades
