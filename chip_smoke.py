@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--profile-out DIR]
 
 Drives the port's main path — the lockstep codec tick: EncoderEngine.step
-→ device wire pack → unpack → DecoderEngine.step — at the full width of the
-Lyra v2 models: the real weights when LYRA_TPU_MODEL_PATH names a directory
-that holds them, otherwise the synthetic full-width fixture
+→ device wire pack → unpack → DecoderEngine.step, each step one CUDA-graph
+replay (utils/capture.py) — and the serving path over it (EncoderServer.
+tick_wire → DecoderServer.tick_wire) at the full width of the Lyra v2
+models: the real weights when LYRA_TPU_MODEL_PATH names a directory that
+holds them, otherwise the synthetic full-width fixture
 (tests/golden/synthetic_lyra/full, random weights from a seed).
 
 Phases, one line each; any failed check raises and exits nonzero:
@@ -40,19 +42,43 @@ Phases, one line each; any failed check raises and exits nonzero:
               .npz at all six rate pairs (bar 0.05 at int16 scale), then a
               B=1024, 50-hop streaming run at 16↔48 kHz vs the
               single-stream numpy path;
-  6. main     the float engines at 16 kHz, 50 ticks at B=1024 with ~10%
-              of hops lost, launch counts reset before and read after,
-              kernel names checked in a torch.profiler window (which
-              also gives device µs per tick, all kernels and each of the
+  6. main     the float engines at 16 kHz: 50 ticks of the fresh
+              engines' captured `step` at B=1024 with ~10% of hops lost,
+              launch counts reset just before and read just after (a
+              replay runs no wrapper, so they count the run's warm-up and
+              two captures of each step: 3 × the launches per tick), the
+              last 3 ticks in a torch.profiler window that must name each
+              kernel and count 1/3 of its launches in the replays (it also
+              gives device µs per tick, all kernels and each of the
               path's; the SM clock is sampled over the 50 ticks), output
-              finite at speech level, and the kernel path's decoder vs the
-              plain path's on the same indices (within 2 int16 LSB);
+              finite at speech level,
+              and the kernel path's decoder vs the plain path's on the
+              same indices (within 2 int16 LSB);
   7. main-bf16  the same slice in bf16 mode at 48 kHz (the JAX package's
               serving mode, a 48 kHz fleet), then vs the plain bf16 path
               at B=64 from identical inputs: features and decoder audio
               within 3e-2 × max|plain|, indices identical;
   8. timing   p50/p99 ms per tick, kernel path vs plain path, float at
-              16 kHz and bf16 at 48 kHz.
+              16 kHz and bf16 at 48 kHz, both eager (engines without
+              graphs, as before the capture);
+  9. serve    EncoderServer.tick_wire → DecoderServer.tick_wire at B=1024,
+              float at 16 kHz and bf16 at 48 kHz, 50 ticks with phase 6's
+              loss pattern at 120 bits, 64 streams evicted at tick 10, 64
+              admitted into their slots and 64 others evicted at tick 20,
+              a save and a restore into a fresh server pair at tick 30:
+              wire bytes, sizes, audio and comfort-noise flags bitwise
+              equal to the same run on eager engines, launch counts reset
+              before the captured run and read after it (the captures'
+              launches), the async pipelines equal to it one tick later
+              (a re-admitted slot drains silence), the four kernel
+              families named in a profiler window over replayed ticks;
+              then eager vs captured tick wall time p50/p99 in turns
+              eager, captured, async, async, captured, eager of
+              SERVE_TIMED ticks each (async: the captured pair's
+              tick_wire_async pipelines), with device time per tick from
+              the profiler, the idle share (1 − device / p50), the memory
+              each server pair holds and peaks at, and the captured engine
+              steps' device span per tick run back to back.
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -61,8 +87,10 @@ Then one JSON line with every kernel (per hop at B=1024: kernel, plain
 and library time as eager medians in ms/plain_ms/library_ms and as
 graph-replay medians in graph_ms/plain_graph_ms/library_graph_ms, the
 cold-L2 single launch in cold_ms where measured, bound and what sets it,
-launches on the main paths), the card's name and power limit, and as the
-last line
+`launches`: the launches over the main paths' runs of phases 6 and 7,
+and `launches_per_tick`: the launches per replayed tick in those runs'
+profiler windows, both summed over the two phases), the card's name and
+power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Exits nonzero without printing a result when CUDA is unavailable.
@@ -71,6 +99,7 @@ Exits nonzero without printing a result when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -94,6 +123,8 @@ GOLDEN_TOL = 0.05  # resampler vs goldens, int16 scale (the JAX test's bar)
 FLUSH_BYTES = 256 << 20  # written between cold launches: > 50 MB of L2
 SPIN_CYCLES = 200_000  # the warm launches' wait, about as long as a flush
 BATCH, TICKS = 1024, 50  # the main path's streams and ticks
+SERVE_TIMED = 200  # timed server ticks per turn, phase 9
+SERVE_CHURN = 64  # streams evicted and admitted, phase 9
 RATE_BF16 = 48000  # the bf16 main path's fleet rate
 # The two graphs of the fused stack: input shape per stream, input scale.
 MODELS = (("soundstream_encoder", (320,), 0.1), ("lyragan", (1, 64), 1.0))
@@ -635,25 +666,84 @@ def _inputs(batch, ticks, dev, hop=320):
     return audio, torch.tensor(~lost, device=dev)
 
 
-def _tick(enc, dec, es, ds, audio, received, num_bits):
+def _tick(enc, dec, es, ds, audio, received, num_bits, eager=False):
+    """One tick of the slice: the engines' `step` (a replay each where they
+    have graphs), or with eager=True their `_step_impl`."""
     import torch
 
     from lyra_tpu_torch import packet
 
     nq = num_bits // 4
-    idx, _, es = enc.step(es, audio, nq)
+    if eager:
+        idx, _, es = enc._step_impl(es, audio, torch.full(
+            (audio.shape[0],), nq, dtype=torch.int32, device=audio.device))
+    else:
+        idx, _, es = enc.step(es, audio, nq)
     wire = packet.pack_wire_device(idx, num_bits)
     dec_idx = torch.full_like(idx, -1)
     dec_idx[:, :nq] = packet.unpack_wire_device(wire, num_bits)
-    out, cn, ds = dec.step(ds, dec_idx, received)
+    out, cn, ds = (dec._step_impl if eager else dec.step)(ds, dec_idx,
+                                                          received)
     return out, cn, es, ds, dec_idx
 
 
+def _eager(engine):
+    """`engine` with its step bound to `_step_impl`: no CUDA graphs."""
+    engine.graphs = None
+    return engine
+
+
+def _own(k, n):
+    """A kernel's own name in a profiler event name, not a longer one that
+    contains it (demangled "ns::conv1d_fwd(" or mangled "10conv1d_fwdE")."""
+    return re.search(rf"(?<![A-Za-z_]){k.name}(?![a-z0-9_])", n)
+
+
+def _device_us(prof):
+    """Device µs of each CUDA event name in a profiler window."""
+    return {n: us for n, (us, _) in _device_events(prof).items()}
+
+
+def _device_events(prof):
+    """(device µs, count) of each CUDA event name in a profiler window,
+    without the profiler's own step ranges ("ProfilerStep*", which span
+    whole steps on the device's timeline)."""
+    import torch
+
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")}
+
+
+def _profile_ticks(tick, n=3):
+    """`tick(i)` for i = 0..n under torch.profiler: tick 0 as its warm-up
+    step (a profiler's first step can lose device records), ticks 1..n
+    profiled, each step ended by a synchronize.  → the profile of the n."""
+    import torch
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=n,
+                                         repeat=1))
+    with prof:
+        for i in range(n + 1):
+            tick(i)
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
-    """Run `ticks` ticks of the slice at `batch` with every launch count set
-    to 0 just before and read just after; the last 3 ticks under
-    torch.profiler.  Checks launches, kernel names, shape, finiteness and
-    speech level; returns (launches, summary)."""
+    """`ticks` ticks of the slice at `batch` through the fresh engines'
+    captured `step`, every launch count set to 0 just before and read just
+    after, the last 3 ticks under torch.profiler.  A replay runs no
+    wrapper, so the counts are those of the captures: one warm-up and two
+    captures (ping-pong trees) of each step, 3 × the launches per tick,
+    which the profiler counts in the replays.  Checks launches, kernel
+    names and counts in the replays, shape, finiteness and speech level;
+    returns (launches, launches per tick, summary)."""
     import torch
 
     from lyra_tpu_torch.ops import conv_stack, rvq_kernel
@@ -663,24 +753,25 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     es, ds = enc.init_state(batch), dec.init_state(batch)
     num_bits = 120
     outs, cn_count = [], 0
-    prof_window = range(ticks - 3, ticks)
     every = conv_stack.KERNELS + rvq_kernel.KERNELS
-    for k in every:
-        k.launches = 0
+    check(enc.graphs is not None and dec.graphs is not None,
+          "main path: the engines have no CUDA graphs")
+
+    def tick(_=None):
+        nonlocal es, ds, cn_count
+        t = len(outs)
+        out, cn, es, ds, _ = _tick(enc, dec, es, ds, audio[t], received[t],
+                                   num_bits)
+        outs.append(out.clone())  # the graph's buffer: the next replay
+        cn_count += int(cn.sum().item())  # overwrites it
+
     with ClockSampler() as clocks:
-        for t in range(ticks):
-            if t == prof_window.start:
-                prof = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA])
-                prof.__enter__()
-            out, cn, es, ds, _ = _tick(enc, dec, es, ds, audio[t],
-                                       received[t], num_bits)
-            outs.append(out)
-            cn_count += int(cn.sum().item())
-        torch.cuda.synchronize()
-        prof.__exit__(None, None, None)
-    launches = {k.name: k.launches for k in every}
+        for k in every:
+            k.launches = 0
+        for _ in range(ticks - 4):
+            tick()
+        prof = _profile_ticks(tick)
+        launches = {k.name: k.launches for k in every}
     for k in kernels:
         check(launches[k.name] > 0, f"main path never launched {k.name}")
     others = {n: c for n, c in launches.items()
@@ -694,33 +785,31 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     rms = out[10:].float().pow(2).mean().sqrt().item()
     check(300.0 <= rms <= 15000.0, f"main path: RMS {rms} not speech-level")
 
-    events = prof.key_averages()
-    # Device µs of each CUDA kernel name in the window.
-    dev_us = {e.key: e.self_device_time_total for e in events
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
-    cuda_names = list(dev_us)
-    check(bool(cuda_names), "profiler recorded no CUDA events")
-    # A kernel's own name, not a longer one that contains it (demangled
-    # "ns::conv1d_fwd(" or mangled "10conv1d_fwdE").
-    def own(k, n):
-        return re.search(rf"(?<![A-Za-z_]){k.name}(?![a-z0-9_])", n)
-
-    seen = {k.name: any(own(k, n) for n in cuda_names) for k in kernels}
-    check(all(seen.values()), f"profiler: kernels missing {seen}")
+    events = _device_events(prof)
+    check(bool(events), "profiler recorded no CUDA events")
     # Per tick, each of the path's kernels summed over its instances.
-    per_tick = {k.name: sum(t for n, t in dev_us.items() if own(k, n)) / 3
-                for k in kernels}
+    per_tick = {k.name: sum(us for n, (us, _) in events.items() if _own(k, n))
+                / 3 for k in kernels}
+    counted = {k.name: sum(c for n, (_, c) in events.items() if _own(k, n))
+               for k in kernels}
+    check(all(counted.values()), f"profiler: kernels missing {counted}")
+    check(all(c % 3 == 0 and launches[n] == c for n, c in counted.items()),
+          f"main path: launches {launches} are not 3 x the launches per "
+          f"replayed tick (profiler, 3 ticks: {counted})")
+    per_tick_launches = {n: c // 3 for n, c in counted.items()}
     if profile_file:
         os.makedirs(os.path.dirname(profile_file), exist_ok=True)
         with open(profile_file, "w") as f:
-            f.write(events.table(sort_by="cuda_time_total", row_limit=60))
-    return {k.name: launches[k.name] for k in kernels}, (
+            f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=60))
+    return {k.name: launches[k.name] for k in kernels}, per_tick_launches, (
         f"B={batch} x {ticks} ticks at {enc.sample_rate_hz} Hz, {lost:.1%} "
         f"of hops lost, audio RMS {rms:.1f} (int16), {cn_count} "
-        f"comfort-noise stream-hops; launches "
-        f"{ {k.name: launches[k.name] for k in kernels} }; kernel names in "
-        f"profiler: {', '.join(seen)}; device µs per tick (last 3 ticks): "
-        f"all {sum(dev_us.values()) / 3:.1f}, "
+        f"comfort-noise stream-hops; launches over the run (warm-up and two "
+        f"captures of each step) { {k.name: launches[k.name] for k in kernels} }"
+        f", per replayed tick (profiler) {per_tick_launches}; device µs per "
+        f"captured tick (last 3 ticks): "
+        f"all {sum(us for us, _ in events.values()) / 3:.1f}, "
         + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items())
         + f"; over the {ticks} ticks {clocks.summary()}")
 
@@ -731,7 +820,7 @@ def phase_main(path, batch, ticks, dev, profile_out):
 
     enc = EncoderEngine(16000, path, device=dev)
     dec = DecoderEngine(16000, path, device=dev)
-    launches, summary = _drive(
+    launches, per_tick, summary = _drive(
         enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile.txt"))
@@ -759,7 +848,7 @@ def phase_main(path, batch, ticks, dev, profile_out):
     print(f"main path: ok, {summary}; vs plain path (B={b_ref}, 10 "
           f"ticks): rows with identical indices {same_idx:.4f}, decoder max "
           f"diff {worst_lsb} LSB")
-    return launches
+    return launches, per_tick
 
 
 def _features(enc, state, audio):
@@ -796,7 +885,7 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
     nq = num_bits // 4
     enc = EncoderEngine(rate, path, mode="bf16", device=dev)
     dec = DecoderEngine(rate, path, mode="bf16", device=dev)
-    launches, summary = _drive(
+    launches, per_tick, summary = _drive(
         enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile_bf16.txt"))
@@ -840,7 +929,7 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
           f"features {err['features']:.3e}, audio {err['audio']:.3e}; plain "
           f"bf16 vs plain f32: features {plain_dev['features']:.3e}, audio "
           f"{plain_dev['audio']:.3e}; bars {bars}")
-    return launches
+    return launches, per_tick
 
 
 def phase_timing(path, batch, dev, gpu):
@@ -852,10 +941,10 @@ def phase_timing(path, batch, dev, gpu):
     for rate, mode in ((16000, "float"), (RATE_BF16, "bf16")):
         paths = {}
         for backend in ("kernel", "plain"):
-            enc = EncoderEngine(rate, path, backend=backend, mode=mode,
-                                device=dev)
-            dec = DecoderEngine(rate, path, backend=backend, mode=mode,
-                                device=dev)
+            enc = _eager(EncoderEngine(rate, path, backend=backend, mode=mode,
+                                       device=dev))
+            dec = _eager(DecoderEngine(rate, path, backend=backend, mode=mode,
+                                       device=dev))
             paths[backend] = [enc, dec, enc.init_state(batch),
                               dec.init_state(batch), []]
         audio, received = _inputs(batch, 20, dev, paths["kernel"][0].hop_samples)
@@ -875,11 +964,263 @@ def phase_timing(path, batch, dev, gpu):
             res[(mode, rate, backend)] = (float(np.percentile(times, 50)),
                                           float(np.percentile(times, 99)))
         del paths
-    print(f"timing: B={batch} encode+wire+decode per tick, 40 ticks each: " +
+    print(f"timing: B={batch} encode+wire+decode per eager tick, 40 ticks "
+          f"each: " +
           "; ".join(f"{mode} {rate // 1000} kHz {backend} p50 {p50:.3f} ms "
                     f"p99 {p99:.3f} ms"
                     for (mode, rate, backend), (p50, p99) in res.items()) +
           f" [{gpu}]")
+
+
+def _serve_run(enc_eng, dec_eng, pcm, received, asynchronous=False,
+               wires=None):
+    """Phase 9's schedule on a server pair over the engines: all streams
+    admitted; SERVE_CHURN evicted at tick 10; SERVE_CHURN new ones admitted
+    into their slots and SERVE_CHURN others evicted at tick 20; both
+    servers saved and restored into a fresh pair at tick 30.  Synchronous:
+    EncoderServer.tick_wire → DecoderServer.tick_wire.  Asynchronous: the
+    tick_wire_async pipelines, the decoder fed the synchronous run's
+    `wires`, outputs placed at the tick they belong to.  → per tick
+    (wire, sizes, audio, comfort-noise flags) as numpy, and the slots
+    re-admitted at tick 20."""
+    import tempfile
+
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+
+    ticks, batch = pcm.shape[:2]
+
+    def fresh():
+        return (EncoderServer(batch, engine=enc_eng, bitrate=6000),
+                DecoderServer(batch, engine=dec_eng))
+
+    enc, dec = fresh()
+    for srv in (enc, dec):
+        srv.add_streams(range(batch))
+    outs, readmitted = [None] * ticks, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for t in range(ticks):
+            if t == 10:
+                for srv in (enc, dec):
+                    for sid in range(SERVE_CHURN):
+                        srv.remove_stream(sid)
+            if t == 20:
+                new = range(batch, batch + SERVE_CHURN)
+                readmitted = sorted(enc.add_streams(new).values())
+                check(sorted(dec.add_streams(new).values()) == readmitted,
+                      "serve: encoder and decoder slots differ")
+                for srv in (enc, dec):
+                    for sid in range(SERVE_CHURN, 2 * SERVE_CHURN):
+                        srv.remove_stream(sid)
+            if t == 30:
+                if asynchronous:
+                    outs[t - 1] = (*enc.flush_async(), dec.flush_async(),
+                                   dec._last_comfort.copy())
+                enc.save(os.path.join(tmp, "enc"))
+                dec.save(os.path.join(tmp, "dec"))
+                enc, dec = fresh()
+                enc.restore(os.path.join(tmp, "enc"))
+                dec.restore(os.path.join(tmp, "dec"))
+            if asynchronous:
+                w_in, s_in = wires[t]
+                w = enc.tick_wire_async(pcm[t])
+                a = dec.tick_wire_async(w_in, received[t] & (s_in > 0), s_in)
+                if t not in (0, 30):
+                    outs[t - 1] = (*w, a, dec._last_comfort.copy())
+            else:
+                wire, sizes = enc.tick_wire(pcm[t])
+                a = dec.tick_wire(wire, received[t] & (sizes > 0), sizes)
+                outs[t] = (wire, sizes, a, dec._last_comfort.copy())
+        if asynchronous:
+            outs[-1] = (*enc.flush_async(), dec.flush_async(),
+                        dec._last_comfort.copy())
+    return outs, readmitted
+
+
+def _serve_ticks(servers, pcm, received, n, times=None, asynchronous=False,
+                 start=0):
+    """n ticks of a server pair over the inputs, cycling; wall ms of each
+    appended to `times` (host clock from a synchronized start to the
+    decoder's audio on the host).  Asynchronous: the tick_wire_async
+    pipelines, the decoder fed the encoder's previous tick, and no
+    synchronization between ticks."""
+    import torch
+
+    enc, dec = servers
+    for i in range(start, start + n):
+        t = i % pcm.shape[0]
+        if not asynchronous:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if asynchronous:
+            out = enc.tick_wire_async(pcm[t])
+            if out is not None:
+                dec.tick_wire_async(out[0], received[t] & (out[1] > 0),
+                                    out[1])
+        else:
+            wire, sizes = enc.tick_wire(pcm[t])
+            dec.tick_wire(wire, received[t] & (sizes > 0), sizes)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if asynchronous:
+        enc.flush_async()
+        dec.flush_async()
+
+
+def _replay_span_ms(enc, dec, batch, dev, n=50):
+    """Device ms per tick of the captured engine steps (encode, device wire
+    pack/unpack, decode) run back to back with no host wait between them:
+    CUDA events around n ticks."""
+    import torch
+
+    audio, received = _inputs(batch, 10, dev, enc.hop_samples)
+    es, ds = enc.init_state(batch), dec.init_state(batch)
+    for t in range(3):
+        _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[t], received[t], 120)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for t in range(n):
+        _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[t % 10],
+                                received[t % 10], 120)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _serve_config(path, batch, dev, gpu, rate, mode):
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+
+    kernels = (conv_stack.KERNELS_F32 if mode == "float"
+               else conv_stack.KERNELS_BF16) + rvq_kernel.KERNELS
+    audio, received = _inputs(batch, TICKS, dev, rate // 50)
+    pcm = audio.clamp(-32768, 32767).to(torch.int16).cpu().numpy()
+    received = received.cpu().numpy()
+
+    def engines():
+        return (EncoderEngine(rate, path, mode=mode, device=dev),
+                DecoderEngine(rate, path, mode=mode, emit_dtype="int16",
+                              device=dev))
+
+    # The captured pairs: launch counts over their run are their captures'.
+    cap_engines = engines()
+    every = conv_stack.KERNELS + rvq_kernel.KERNELS
+    for k in every:
+        k.launches = 0
+    captured, readmitted = _serve_run(*cap_engines, pcm, received)
+    launches = {k.name: k.launches for k in every}
+    for k in kernels:
+        check(launches[k.name] > 0, f"serve: captures never launched {k.name}")
+    eager_engines = [_eager(e) for e in engines()]
+    eager, readmitted_e = _serve_run(*eager_engines, pcm, received)
+    check(readmitted == readmitted_e, "serve: slot tables differ")
+    names = ("wire", "sizes", "audio", "comfort noise")
+    for t, (got, want) in enumerate(zip(captured, eager)):
+        for name, g, w in zip(names, got, want):
+            check(g.shape == w.shape and np.array_equal(g, w),
+                  f"serve {mode}: captured {name} differs from eager at tick "
+                  f"{t} in {int((g != w).sum()) if g.shape == w.shape else 'shape'}"
+                  f" places")
+    audio_out = np.stack([o[2] for o in captured])
+    check(audio_out.shape == (TICKS, batch, rate // 50)
+          and audio_out.dtype == np.int16, f"serve: audio {audio_out.shape}")
+    rms = float(np.sqrt(np.mean(audio_out[10:].astype(np.float64) ** 2)))
+    check(300.0 <= rms <= 15000.0, f"serve: RMS {rms} not speech-level")
+    cn_hops = int(sum(o[3].sum() for o in captured))
+
+    # The async pipelines: the same outputs, one tick later; the slots
+    # re-admitted at tick 20 drain silence for tick 19.
+    wires = [(o[0], o[1]) for o in captured]
+    asyn, _ = _serve_run(*cap_engines, pcm, received, asynchronous=True,
+                         wires=wires)
+    for t, (got, want) in enumerate(zip(asyn, captured)):
+        want = [np.array(w) for w in want]
+        if t == 19:
+            for w in want:
+                w[readmitted] = 0
+        for name, g, w in zip(names, got, want):
+            check(np.array_equal(g, w),
+                  f"serve {mode}: async {name} differs at tick {t}")
+
+    # Eager vs captured tick wall time in turns, then each under the
+    # profiler for 3 ticks: device time and the replayed kernels' names.
+    # The memory a pair holds: its state trees, static and pinned buffers
+    # and graphs, after its first 3 ticks.
+    pairs, held = {}, {}
+    for kind, (e, d) in (("captured", cap_engines), ("eager", eager_engines)):
+        gc.collect()  # a dead server is a reference cycle (its programs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        pairs[kind] = (EncoderServer(batch, engine=e, bitrate=6000),
+                       DecoderServer(batch, engine=d))
+        for srv in pairs[kind]:
+            srv.add_streams(range(batch))
+        _serve_ticks(pairs[kind], pcm, received, 3)
+        gc.collect()
+        torch.cuda.synchronize()
+        held[kind] = torch.cuda.memory_allocated() - base
+    times = {kind: [] for kind in ("eager", "captured", "async")}
+    peak = dict.fromkeys(pairs, 0)
+    for kind in ("eager", "captured", "async", "async", "captured", "eager"):
+        servers = pairs["captured" if kind == "async" else kind]
+        _serve_ticks(servers, pcm, received, 3)
+        torch.cuda.reset_peak_memory_stats()
+        _serve_ticks(servers, pcm, received, SERVE_TIMED, times[kind],
+                     asynchronous=kind == "async")
+        if kind != "async":
+            peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+    span = _replay_span_ms(*cap_engines, batch, dev)
+    device = {}
+    for kind, servers in pairs.items():
+        prof = _profile_ticks(lambda i, servers=servers: _serve_ticks(
+            servers, pcm, received, 1, start=i))
+        dev_us = _device_us(prof)
+        device[kind] = sum(dev_us.values()) / 3 / 1e3
+        if kind == "captured":
+            seen = {k.name: any(_own(k, n) for n in dev_us) for k in kernels}
+            check(all(seen.values()),
+                  f"serve {mode}: replayed kernels missing in the profiler "
+                  f"{seen}")
+    stats = {}
+    for kind, ts in times.items():
+        p50, p99 = float(np.percentile(ts, 50)), float(np.percentile(ts, 99))
+        stats[kind] = (p50, p99)
+    print(f"serve {mode} {rate // 1000} kHz: ok, B={batch} x {TICKS} ticks, "
+          f"EncoderServer.tick_wire → DecoderServer.tick_wire at 120 bits, "
+          f"{SERVE_CHURN} streams evicted at tick 10, admitted into slots "
+          f"{readmitted[0]}-{readmitted[-1]} and {SERVE_CHURN} others "
+          f"evicted at tick 20, save + restore into a fresh pair at tick 30: "
+          f"wire, sizes, audio and comfort-noise flags bitwise equal to eager "
+          f"engines; audio RMS {rms:.1f}, {cn_hops} comfort-noise "
+          f"stream-hops; async pipelines equal one tick later (re-admitted "
+          f"slots silent); launches over the captured run (the warm-ups and "
+          f"captures of its two server pairs) "
+          f"{ {k.name: launches[k.name] for k in kernels} }; kernel "
+          f"names in the replays' profiler window: "
+          f"{', '.join(k.name for k in kernels)}")
+    print(f"serve timing {mode} {rate // 1000} kHz [{gpu}]: B={batch}, "
+          f"{SERVE_TIMED} ticks per turn, turns eager, captured, async, "
+          f"async, captured, eager; " + "; ".join(
+              f"{kind} p50 {stats[kind][0]:.3f} ms p99 {stats[kind][1]:.3f} "
+              f"ms ({len(times[kind])} ticks), device {device[kind]:.3f} ms "
+              f"per tick, idle share {1 - device[kind] / stats[kind][0]:.1%}, "
+              f"memory held by a pair after 3 ticks "
+              f"{held[kind] / 2**20:.1f} MiB, peak "
+              f"allocated over its turns {peak[kind] / 2**20:.1f} MiB"
+              for kind in ("eager", "captured"))
+          + f"; captured async pipelines (tick_wire_async, no sync between "
+          f"ticks) p50 {stats['async'][0]:.3f} ms p99 {stats['async'][1]:.3f}"
+          f" ms; captured engine steps back to back (CUDA events, no host "
+          f"wait) {span:.3f} ms per tick")
+
+
+def phase_serve(path, batch, dev, gpu):
+    for rate, mode in ((16000, "float"), (RATE_BF16, "bf16")):
+        _serve_config(path, batch, dev, gpu, rate, mode)
 
 
 def main(argv=None) -> int:
@@ -914,19 +1255,24 @@ def main(argv=None) -> int:
     phase_k2(ResidualVectorQuantizer.from_model_path(path, dev), BATCH, dev,
              stats, gpu)
     phase_rates(BATCH, dev)
-    launches = phase_main(path, BATCH, TICKS, dev, args.profile_out)
-    launches_bf16 = phase_main_bf16(path, BATCH, TICKS, dev, args.profile_out)
-    for name, n in launches_bf16.items():
-        launches[name] = launches.get(name, 0) + n
+    launches, per_tick = {}, {}
+    for phase in (phase_main, phase_main_bf16):
+        counts, ticks = phase(path, BATCH, TICKS, dev, args.profile_out)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+            per_tick[name] = per_tick.get(name, 0) + ticks[name]
     phase_timing(path, BATCH, dev, gpu)
+    phase_serve(path, BATCH, dev, gpu)
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
-    # RVQ kernel's cold-L2 single launch.  The conv kernels' library call
-    # is one cuDNN call (TF32 off) with the weights laid out beforehand; no
-    # single PyTorch call computes the RVQ search.
+    # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs
+    # and per replayed tick.  The conv kernels' library call is one cuDNN
+    # call (TF32 off) with the weights laid out beforehand; no single
+    # PyTorch call computes the RVQ search.
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
+         "launches_per_tick": per_tick[k.name],
          **{key: stats[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "graph_ms", "plain_graph_ms", "library_graph_ms",

@@ -8,8 +8,19 @@ per-stream scalar is a `[B]` tensor and every branch a `torch.where` mask,
 so streams in different PLC states batch together.
 
 State is an explicit dict tree with the JAX engine's keys and shapes
-(utils/state.py converts between the two).  Steps are pure: they return a
-new tree and leave the input tree untouched.
+(utils/state.py converts between the two).  `_step_impl` is pure: it
+returns a new tree and leaves the input tree untouched.
+
+`step` is `_step_impl` compiled, the counterpart of the JAX engines'
+`jax.jit(self._step_impl)`: on the card each step is one CUDA-graph replay
+(utils/capture.py, through `engine.graphs`), and the tree it returns stays
+valid until two more steps have run (the capture's ping-pong trees; the
+analog of donating the state).  Where `graphs` is None — always on the
+CPU, and on the card where a caller sets it so, as the checks of the
+captured path do — `step` runs `_step_impl` eagerly.  `reset_rows` on the
+card is one replay too, under the same rule.  The engine's graph cache
+serves one state lineage at a time; a holder of its own lineage (a
+server) runs the same programs in a cache of its own (`own_graphs`).
 
 `backend="kernel"` (the default) runs the conv stacks through the
 conv-stack kernels and the RVQ search through its kernel; on CPU tensors
@@ -41,8 +52,9 @@ cost a device sync every tick).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from lyra_tpu_torch import config
@@ -62,6 +74,7 @@ from lyra_tpu_torch.models.streaming import (
     mask_tree,
 )
 from lyra_tpu_torch.tflite.executor import compute_dtype
+from lyra_tpu_torch.utils.capture import GraphCache, as_input
 from lyra_tpu_torch.utils.device import resolve
 
 State = Dict[str, Any]
@@ -141,7 +154,50 @@ def fade_weights(fade_progress: torch.Tensor, fade_direction: torch.Tensor,
     return (1.0 + torch.cos(p * torch.pi / FADE_SAMPLES)) / 2.0
 
 
-class DecoderEngine:
+class _Compiled:
+    """What both engines share: running a pure function of the state as
+    one CUDA-graph replay on the card (or eagerly), and the admission
+    template."""
+
+    device: torch.device
+    graphs: GraphCache | None
+
+    def _compile_on(self, device: torch.device) -> None:
+        self.graphs = GraphCache(device) if device.type == "cuda" else None
+        self._fresh: Dict[tuple, State] = {}
+
+    def own_graphs(self) -> GraphCache | None:
+        """A graph cache for one holder of a long-lived state (a server):
+        its state trees are its own, so holders on one engine never write
+        each other's state; it shares this engine's memory pool.  None
+        where the engine runs eagerly."""
+        if self.graphs is None:
+            return None
+        return GraphCache(self.device, pool=self.graphs.pool)
+
+    def _run(self, fn: Callable, key, state: State, *inputs,
+             graphs: GraphCache | None = None):
+        """`fn(state, *inputs) -> (*outputs, new_state)` as one replay of
+        its graph for `key` (its static arguments) in `graphs` (by default
+        the engine's own), or eagerly where the engine's `graphs` is None.
+        Inputs may be numpy arrays or tensors on any device."""
+        if self.graphs is not None:
+            return (graphs or self.graphs).run(fn, key, state, *inputs)
+        return fn(state, *(as_input(x).to(self.device) for x in inputs))
+
+    def _reset(self, state: State, mask, graphs: GraphCache | None = None,
+               **init) -> State:
+        mask = as_input(mask).bool()
+        b = int(mask.shape[0])
+        key = (b, *sorted(init.items()))
+        if key not in self._fresh:
+            self._fresh[key] = self.init_state(b, **init)
+        fresh = self._fresh[key]
+        return self._run(lambda s, m: (mask_tree(m, fresh, s),),
+                         ("reset", key), state, mask, graphs=graphs)[0]
+
+
+class DecoderEngine(_Compiled):
     """Batched hop-lockstep Lyra decoder over `[B]` concurrent streams."""
 
     def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
@@ -181,6 +237,7 @@ class DecoderEngine:
                                          device=device)
         self.noise = NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
         self.estimator = _ESTIMATORS[feature_estimator](device=device)
+        self._compile_on(device)
 
     def init_state(self, batch_size: int, seed: int = 0) -> State:
         b, dev = batch_size, self.device
@@ -200,25 +257,35 @@ class DecoderEngine:
 
     def reset_rows(self, state: State, mask: torch.Tensor,
                    seed: int = 0) -> State:
-        """Re-initialize streams where `mask` is set (stream admission);
-        `seed` must match init_state's to keep the per-stream RNG lineage."""
-        mask = mask.to(device=self.device, dtype=torch.bool)
-        return mask_tree(mask, self.init_state(mask.shape[0], seed=seed), state)
+        """Re-initialize streams where `mask` ([B] bool) is set (stream
+        admission); `seed` must match init_state's to keep the per-stream
+        RNG lineage.  The rows come from a cached fresh tree; on the card
+        the select is one replay (the JAX engine's jitted reset), under
+        `step`'s rule for the tree it returns."""
+        return self._reset(state, mask, seed=seed)
 
-    def step(self, state: State, indices: torch.Tensor,
-             received: torch.Tensor):
-        """Advance every stream by one 20 ms hop.
+    def step(self, state: State, indices, received):
+        """Advance every stream by one 20 ms hop (one replay on the card;
+        see the module docstring).
 
         indices:  [B, num_stages] int RVQ stage indices (−1 beyond the
                   stream's bitrate; ignored where not received).
         received: [B] bool — False means lost (or a DTX empty packet).
+        Both may be numpy arrays or tensors.
 
         Returns (audio [B, hop_samples] at int16 scale — float32, or int16
         with emit_dtype="int16"; is_comfort_noise [B] bool; new_state).
+        On the card audio and is_comfort_noise are the graph's output
+        buffers, overwritten by the next step.
         """
-        received = received.to(device=self.device, dtype=torch.bool)
-        lossy = self.rvq.decode(indices.to(self.device),
-                                dtype=self._decode_dtype,
+        return self._run(self._step_impl, "step", state, indices, received)
+
+    def _step_impl(self, state: State, indices: torch.Tensor,
+                   received: torch.Tensor):
+        """The step itself, pure and eager over device tensors: what the
+        card's graph captures, and the CPU path."""
+        received = received.bool()
+        lossy = self.rvq.decode(indices, dtype=self._decode_dtype,
                                 max_stages=self._max_stages)
         est_state = self.estimator.update(state["est"], lossy, received)
 
@@ -283,7 +350,7 @@ class DecoderEngine:
         return audio, is_comfort_noise, new_state
 
 
-class EncoderEngine:
+class EncoderEngine(_Compiled):
     """Batched hop-lockstep Lyra encoder over `[B]` concurrent streams."""
 
     def __init__(self, sample_rate_hz: int = config.INTERNAL_SAMPLE_RATE,
@@ -308,6 +375,7 @@ class EncoderEngine:
                       if enable_dtx else None)
         self.resampler = _resampler(sample_rate_hz,
                                     config.INTERNAL_SAMPLE_RATE, device)
+        self._compile_on(device)
 
     def init_state(self, batch_size: int) -> State:
         state = {"soundstream": self.soundstream.init_state(batch_size)}
@@ -317,20 +385,33 @@ class EncoderEngine:
             state["resampler"] = self.resampler.init_state(batch_size)
         return state
 
-    def reset_rows(self, state: State, mask: torch.Tensor) -> State:
-        mask = mask.to(device=self.device, dtype=torch.bool)
-        return mask_tree(mask, self.init_state(mask.shape[0]), state)
+    def reset_rows(self, state: State, mask) -> State:
+        """See DecoderEngine.reset_rows."""
+        return self._reset(state, mask)
 
-    def step(self, state: State, audio: torch.Tensor, num_quantizers):
-        """audio [B, hop_samples] at int16 scale; num_quantizers scalar
-        or [B].
+    def step(self, state: State, audio, num_quantizers):
+        """audio [B, hop_samples] at int16 scale (float32 or int16);
+        num_quantizers an int or [B] (numpy or tensor).  One replay on the
+        card (see the module docstring).
 
         Returns (indices [B, num_stages] int32, −1 beyond each stream's
         bitrate; is_noise [B] bool; new_state).  A DTX noise hop leaves the
         stream's SoundStream state untouched (the host sends an empty
         packet)."""
+        b = int(audio.shape[0])
+        if isinstance(num_quantizers, torch.Tensor):
+            nq = num_quantizers.to(torch.int32).expand(b)
+        else:
+            nq = np.broadcast_to(np.asarray(num_quantizers, np.int32), (b,))
+        return self._run(self._step_impl, "step", state, audio, nq)
+
+    def _step_impl(self, state: State, audio: torch.Tensor,
+                   num_quantizers: torch.Tensor):
+        """The step itself, pure and eager over device tensors
+        (num_quantizers [B] int32): what the card's graph captures, and
+        the CPU path."""
         new_state = dict(state)
-        x = audio.to(device=self.device, dtype=torch.float32)
+        x = audio.float()
         if self.resampler is not None:
             x, new_state["resampler"] = self.resampler.resample(
                 state["resampler"], x)

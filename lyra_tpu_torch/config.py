@@ -13,8 +13,11 @@ import os
 
 # Version contract (reference: lyra/lyra_config.cc:28-34).  The minor version
 # must match the `identifier` varint stored in lyra_config.binarypb next to
-# the weights; see `check_params_supported`.
+# the weights; see `check_params_supported`.  Snapshots carry the whole
+# version (utils/checkpoint.py).
+VERSION_MAJOR = 1
 VERSION_MINOR = 3
+VERSION_MICRO = 2
 
 NUM_FEATURES = 64  # learned SoundStream features per 20 ms frame
 NUM_MEL_BINS = 160  # log-mel bins used by noise estimator / CNG
@@ -54,6 +57,10 @@ def packet_size(num_quantized_bits: int) -> int:
     return -(-(num_quantized_bits + NUM_HEADER_BITS) // 8)
 
 
+def bitrate_to_packet_size(bitrate: int) -> int:
+    return -(-bitrate // (FRAME_RATE * 8))
+
+
 def bitrate(num_quantized_bits: int) -> int:
     return packet_size(num_quantized_bits) * 8 * FRAME_RATE
 
@@ -63,6 +70,18 @@ SUPPORTED_BITRATES = tuple(bitrate(b) for b in SUPPORTED_QUANTIZED_BITS)
 
 def is_sample_rate_supported(sample_rate_hz: int) -> bool:
     return sample_rate_hz in SUPPORTED_SAMPLE_RATES
+
+
+def packet_size_to_num_quantized_bits(size: int) -> int:
+    """Packet size in bytes → quantized bits, or -1 if unrecognized.
+
+    The packet size *is* the bitrate signal on the wire (reference:
+    lyra/lyra_config.h:99-107).
+    """
+    for bits in SUPPORTED_QUANTIZED_BITS:
+        if size == packet_size(bits):
+            return bits
+    return -1
 
 
 def bitrate_to_num_quantized_bits(rate: int) -> int:
@@ -142,3 +161,7 @@ def check_params_supported(
             f"Weights identifier ({identifier}) is not compatible with code "
             f"identifier ({VERSION_MINOR})."
         )
+
+
+def version_string() -> str:
+    return f"{VERSION_MAJOR}.{VERSION_MINOR}.{VERSION_MICRO}"

@@ -75,6 +75,12 @@ class Resampler:
         self._hist = 2 * self.radius
         self.device = resolve(device)
         self.taps = torch.tensor(self._taps, device=self.device)
+        # The gather path's window index and phase per output count, made
+        # on the host once (a per-call host→device copy cannot be captured
+        # in a CUDA graph): the 20 ms hop's here, any other on first use.
+        self._gather = {}
+        if not (self.up == 1 or self.down == 1) and input_rate % 50 == 0:
+            self._gather_index(self.output_length(input_rate // 50))
 
     @property
     def identity(self) -> bool:
@@ -117,13 +123,21 @@ class Resampler:
     def resample_gather(self, ext: torch.Tensor, n_out: int) -> torch.Tensor:
         """General-ratio polyphase gather over ext = [state, x]: explicit
         [B, n_out, K] windows times each output's phase taps."""
-        k = self._taps.shape[1]
-        n = np.arange(n_out)
-        offs = (n * self.down) // self.up  # window start in ext coords
-        phase = torch.as_tensor((n * self.down) % self.up, device=ext.device)
-        idx = torch.as_tensor(offs[:, None] + np.arange(k)[None, :],
-                              device=ext.device)
-        return torch.einsum("bnk,nk->bn", ext[:, idx], self.taps[phase])
+        idx, taps = self._gather_index(n_out)
+        return torch.einsum("bnk,nk->bn", ext[:, idx], taps)
+
+    def _gather_index(self, n_out: int):
+        """([n_out, K] window index into ext, [n_out, K] phase taps)."""
+        if n_out not in self._gather:
+            n = np.arange(n_out)
+            offs = (n * self.down) // self.up  # window start in ext coords
+            phase = torch.as_tensor((n * self.down) % self.up,
+                                    device=self.device)
+            idx = torch.as_tensor(
+                offs[:, None] + np.arange(self._taps.shape[1])[None, :],
+                device=self.device)
+            self._gather[n_out] = (idx, self.taps[phase])
+        return self._gather[n_out]
 
     def resample_np(self, x: np.ndarray) -> np.ndarray:
         """Single-shot numpy path for host-side use (stateless, primed)."""

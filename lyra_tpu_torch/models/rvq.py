@@ -47,7 +47,10 @@ class ResidualVectorQuantizer:
         self.codebooks = torch.tensor(np.asarray(codebooks, np.float32),
                                       device=self.device)  # [S, 16, F]
         self.c2 = (self.codebooks * self.codebooks).sum(-1).contiguous()
-        self._rounded = {}  # dtype → codebooks rounded to it, as float32
+        # The bf16 engines' decode codebooks, rounded to bf16, as float32:
+        # built here, so that no step (nor a CUDA-graph capture) allocates.
+        self._rounded = {torch.bfloat16: self.codebooks.to(torch.bfloat16)
+                         .float()}
         self.num_stages = codebooks.shape[0]
         self.num_codes = codebooks.shape[1]
         self.bits_per_stage = int(np.log2(codebooks.shape[1]))
@@ -62,8 +65,11 @@ class ResidualVectorQuantizer:
                  method: str = "kernel", max_stages: int | None = None
                  ) -> torch.Tensor:
         """features [B, F] → int32 stage indices [B, S] (−1 beyond
-        num_quantizers, a scalar or [B]).  `max_stages` caps the recursion
-        itself; computed stages equal the full run's."""
+        num_quantizers: an int, or a [B] int tensor on the features'
+        device, which is what a CUDA-graph capture takes — the int is a
+        fill, the tensor is read where it lies, so neither copies from the
+        host).  `max_stages` caps the recursion itself; computed stages
+        equal the full run's."""
         run_stages = self.num_stages if max_stages is None else int(max_stages)
         if not 1 <= run_stages <= self.num_stages:
             raise ValueError(f"max_stages {max_stages} out of range")
@@ -92,8 +98,14 @@ class ResidualVectorQuantizer:
             pad = torch.full((b, self.num_stages - run_stages), -1,
                              dtype=torch.int32, device=indices.device)
             indices = torch.cat([indices, pad], dim=1)
-        nq = torch.as_tensor(num_quantizers, dtype=torch.int32,
-                             device=indices.device)
+        if isinstance(num_quantizers, torch.Tensor):
+            if num_quantizers.device != indices.device:
+                raise ValueError(f"num_quantizers on {num_quantizers.device}, "
+                                 f"features on {indices.device}")
+            nq = num_quantizers.to(torch.int32)
+        else:
+            nq = torch.full((b,), int(num_quantizers), dtype=torch.int32,
+                            device=indices.device)
         nq = torch.clamp(nq, max=run_stages).expand(b)
         stage_ids = torch.arange(self.num_stages, dtype=torch.int32,
                                  device=indices.device)[None, :]
@@ -120,7 +132,7 @@ class ResidualVectorQuantizer:
         cbs = self.codebooks
         if dtype is not None and dtype != torch.float32:
             if dtype not in self._rounded:
-                self._rounded[dtype] = cbs.to(dtype).float()
+                raise ValueError(f"decode dtype {dtype} is not supported")
             cbs = self._rounded[dtype]
         rows = cbs[stage, idx.clamp(0, self.num_codes - 1)]
         return (rows * used[..., None]).sum(dim=1)

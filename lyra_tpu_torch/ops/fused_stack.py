@@ -268,6 +268,16 @@ class FusedStack:
         new_state)."""
         env: Dict[int, torch.Tensor] = {self.input_idx: x.to(self.graph.dtype)}
         new_state = dict(state)
-        self.graph.run_ops(self._prologue + self._core + self._epilogue, env,
-                           new_state, convs=self._convs)
+        # The audio edges run through cuDNN.  LyraGAN's output edge is a
+        # transposed conv, i.e. cuDNN's backward-data pass, whose fastest
+        # algorithms sum with atomics: the same inputs then give other bits
+        # from run to run (seen at B=1024 on an H100), and a CUDA-graph
+        # replay other bits than an eager launch.  Only cuDNN's
+        # deterministic algorithms here, then; TF32 stays as the caller set
+        # it, and the plain executor (the reference) keeps cuDNN's choice.
+        with torch.backends.cudnn.flags(
+                enabled=True, deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            self.graph.run_ops(self._prologue + self._core + self._epilogue,
+                               env, new_state, convs=self._convs)
         return env[self.output_idx].float(), new_state

@@ -20,9 +20,11 @@ import torch
 
 from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
 from lyra_tpu_torch.dsp.resampler import Resampler
+from lyra_tpu_torch.models.streaming import mask_tree
 from lyra_tpu_torch.ops import conv_stack, rvq_kernel
 from lyra_tpu_torch.ops.fused_stack import FusedStack
 from lyra_tpu_torch.tflite.executor import load_graph
+from lyra_tpu_torch.utils import capture
 
 pytestmark = pytest.mark.cuda
 
@@ -559,3 +561,210 @@ def test_depthwise_batch_past_the_grid_limit(cuda, dtype):
     assert conv_stack.BY_DTYPE[dtype][1].launches == n + 1
     ref = conv_stack.depthwise_conv1d_plain(x, w, b, d)
     (_close_f32 if dtype == torch.float32 else _close_bf16)(got, ref)
+
+
+# -- the compiled tick: CUDA-graph capture (utils/capture.py) ----------------
+
+
+def _tick_inputs(rate, ticks, batch, seed=3):
+    rng = np.random.default_rng(seed)
+    hop = rate // 50
+    audio = np.clip(rng.normal(0, 3000, (ticks, batch, hop)), -32768,
+                    32767).astype(np.float32)
+    received = rng.random((ticks, batch)) < 0.85
+    received[8:14, ::3] = False  # concealment, the fade and comfort noise
+    return audio, received
+
+
+def _assert_trees_equal(a, b):
+    for (pa, x), (pb, y) in zip(capture.leaves(a), capture.leaves(b)):
+        assert pa == pb and x.dtype == y.dtype
+        assert torch.equal(x, y), pa
+
+
+@pytest.mark.parametrize("mode,rate", [("float", 16000), ("float", 48000),
+                                       ("bf16", 16000), ("bf16", 48000)])
+def test_captured_step_is_bitwise_eager(cuda, mode, rate):
+    """20 ticks of both engines' captured `step` equal eager `_step_impl`
+    bit for bit, with a `reset_rows` at tick 10 (one replay, equal to the
+    eager `mask_tree`, its input tree left as it was)."""
+    b, nq = 8, 30
+    enc = EncoderEngine(rate, SMALL, mode=mode, device=cuda)
+    dec = DecoderEngine(rate, SMALL, mode=mode, device=cuda)
+    audio, received = _tick_inputs(rate, 20, b)
+    es_c = es_e = enc.init_state(b)
+    ds_c = ds_e = dec.init_state(b, seed=4)
+    mask = np.zeros(b, bool)
+    mask[[1, 6]] = True
+    for t in range(20):
+        if t == 10:
+            es_in, ds_in = es_c, ds_c
+            kept = [v.clone() for _, v in capture.leaves(es_in)
+                    + capture.leaves(ds_in)]
+            es_c = enc.reset_rows(es_c, mask)
+            ds_c = dec.reset_rows(ds_c, mask, seed=4)
+            assert es_c is not es_in and ds_c is not ds_in  # the other tree
+            for (_, v), k in zip(capture.leaves(es_in)
+                                 + capture.leaves(ds_in), kept):
+                assert torch.equal(v, k)
+            m = torch.tensor(mask, device=cuda)
+            es_e = mask_tree(m, enc.init_state(b), es_e)
+            ds_e = mask_tree(m, dec.init_state(b, seed=4), ds_e)
+            _assert_trees_equal(es_c, es_e)
+            _assert_trees_equal(ds_c, ds_e)
+        x = torch.tensor(audio[t], device=cuda)
+        nq_t = torch.full((b,), nq, dtype=torch.int32, device=cuda)
+        idx_c, noise_c, es_c = enc.step(es_c, audio[t], nq)
+        idx_e, noise_e, es_e = enc._step_impl(es_e, x, nq_t)
+        assert torch.equal(idx_c, idx_e) and torch.equal(noise_c, noise_e), t
+        r = torch.tensor(received[t], device=cuda)
+        out_c, cn_c, ds_c = dec.step(ds_c, idx_e.cpu().numpy(), received[t])
+        out_e, cn_e, ds_e = dec._step_impl(ds_e, idx_e, r)
+        assert torch.equal(out_c, out_e) and torch.equal(cn_c, cn_e), t
+        _assert_trees_equal(es_c, es_e)
+        _assert_trees_equal(ds_c, ds_e)
+
+
+def test_captured_step_never_writes_its_input_and_keeps_two_trees(cuda):
+    """A tree fed in is never written; a tree returned stays valid through
+    one more replay and is reused by the second (the ping-pong pair)."""
+    enc = EncoderEngine(16000, SMALL, device=cuda)
+    audio, _ = _tick_inputs(16000, 4, 4)
+    s0 = enc.init_state(4)
+    s0_copy = {k: v.clone() for k, v in capture.leaves(s0)}
+    _, _, r1 = enc.step(s0, audio[0], 16)
+    _, _, r1_ref = enc._step_impl(s0, torch.tensor(audio[0], device=cuda),
+                                  torch.full((4,), 16, dtype=torch.int32,
+                                             device=cuda))
+    for p, v in capture.leaves(s0):
+        assert torch.equal(v, s0_copy[p]), p
+    r1_copy = {k: v.clone() for k, v in capture.leaves(r1)}
+    _, _, r2 = enc.step(r1, audio[1], 16)
+    assert r2 is not r1
+    for p, v in capture.leaves(r1):
+        assert torch.equal(v, r1_copy[p]), p  # valid through one replay
+    _assert_trees_equal(r1, r1_ref)
+    _, _, r3 = enc.step(r2, audio[2], 16)
+    assert r3 is r1  # the second replay reuses it
+    _, _, r4 = enc.step(s0, audio[0], 16)  # a foreign tree again
+    for p, v in capture.leaves(s0):
+        assert torch.equal(v, s0_copy[p]), p
+    _assert_trees_equal(r4, r1_ref)
+
+
+def test_capture_errors_raise_and_never_run_eagerly(cuda, monkeypatch):
+    """A launch error inside the capture raises (again on the next call:
+    nothing falls back to eager), and so does a failed replay."""
+    from lyra_tpu_torch.ops import cuda_build
+
+    dec = DecoderEngine(16000, SMALL, device=cuda)
+    ds = dec.init_state(4)
+    idx = np.zeros((4, 46), np.int32)
+    rec = np.ones(4, bool)
+    check = cuda_build.check
+
+    def fail_in_capture(err, kernel):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"injected launch error in {kernel}")
+        check(err, kernel)
+
+    monkeypatch.setattr(cuda_build, "check", fail_in_capture)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="injected launch error"):
+            dec.step(ds, idx, rec)
+    monkeypatch.setattr(cuda_build, "check", check)
+    out, _, ds2 = dec.step(ds, idx, rec)
+    ref, _, _ = dec._step_impl(ds, torch.tensor(idx, device=cuda),
+                               torch.tensor(rec, device=cuda))
+    assert torch.equal(out, ref)
+
+    def fail_replay(self):
+        raise RuntimeError("injected replay error")
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", fail_replay)
+    with pytest.raises(RuntimeError, match="injected replay error"):
+        dec.step(ds2, idx, rec)
+
+
+def test_servers_on_card_match_eager_servers(cuda):
+    """The servers' captured wire programs (uniform, mixed, async) equal
+    the same servers on eager engines bit for bit."""
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+
+    def pair(graphs):
+        enc = EncoderEngine(16000, SMALL, device=cuda)
+        dec = DecoderEngine(16000, SMALL, emit_dtype="int16", device=cuda)
+        if not graphs:
+            enc.graphs = dec.graphs = None
+        e, d = EncoderServer(8, engine=enc, bitrate=6000), DecoderServer(
+            8, engine=dec)
+        for srv in (e, d):
+            srv.add_streams(range(7))
+        e.set_bitrate(3, 9200)
+        return e, d
+
+    audio, received = _tick_inputs(16000, 12, 8)
+    pcm = audio.astype(np.int16)
+    runs = []
+    for graphs in (True, False):
+        enc, dec = pair(graphs)
+        outs = []
+        for t in range(12):
+            if t == 6:
+                for srv in (enc, dec):
+                    srv.remove_stream(2)
+                    srv.add_stream(9)
+            wire, sizes = enc.tick_wire(pcm[t])
+            if t % 2:
+                a = dec.tick_wire(wire, received[t] & (sizes > 0), sizes)
+            else:
+                a = dec.tick_wire(wire[:, :15], received[t] & (sizes == 15))
+            outs.append((wire, sizes, a, dec._last_comfort.copy()))
+        a_async = [dec.tick_wire_async(w, received[t] & (s > 0), s)
+                   for t, (w, s, _, _) in enumerate(outs)]
+        a_async.append(dec.flush_async())
+        outs.append(a_async)
+        runs.append(outs)
+    for t in range(12):
+        for got, want in zip(runs[0][t], runs[1][t]):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(runs[0][12][t + 1], runs[1][12][t + 1])
+
+
+def test_servers_sharing_an_engine_keep_their_own_state(cuda):
+    """Two live server pairs on one pair of engines, ticking in turn on
+    different audio, each equal bit for bit to a pair on eager engines of
+    its own: a server's graphs and state trees are its own."""
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+
+    def engines(graphs):
+        enc = EncoderEngine(16000, SMALL, device=cuda)
+        dec = DecoderEngine(16000, SMALL, emit_dtype="int16", device=cuda)
+        if not graphs:
+            enc.graphs = dec.graphs = None
+        return enc, dec
+
+    def pair(enc, dec, seed):
+        e, d = (EncoderServer(8, engine=enc, bitrate=6000),
+                DecoderServer(8, engine=dec, seed=seed))
+        for srv in (e, d):
+            srv.add_streams(range(8))
+        return e, d
+
+    audio, received = _tick_inputs(16000, 10, 8)
+    pcm = [audio.astype(np.int16), (audio[:, ::-1] * 0.5).astype(np.int16)]
+    shared = engines(True)
+    pairs = [(pair(*shared, i), pair(*engines(False), i)) for i in (0, 1)]
+    for t in range(10):
+        for i, (on_shared, alone) in enumerate(pairs):
+            if t == 5:  # admission on one server of the shared engines
+                for srv in (*on_shared, *alone):
+                    srv.remove_stream(3)
+                    srv.add_stream(20 + i)
+            got = []
+            for enc, dec in (on_shared, alone):
+                wire, sizes = enc.tick_wire(pcm[i][t])
+                got.append((wire, sizes, dec.tick_wire(
+                    wire, received[t] & (sizes > 0), sizes)))
+            for a, b in zip(*got):
+                np.testing.assert_array_equal(a, b, err_msg=f"pair {i} t {t}")

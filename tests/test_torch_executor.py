@@ -204,4 +204,10 @@ def test_copied_parser_and_config_match_jax_package(fixture):
     for rate in (3200, 6000, 9200, 1234):
         assert config.bitrate_to_num_quantized_bits(rate) == \
             jax_config.bitrate_to_num_quantized_bits(rate)
+        assert config.bitrate_to_packet_size(rate) == \
+            jax_config.bitrate_to_packet_size(rate)
+    for size in range(0, 30):
+        assert config.packet_size_to_num_quantized_bits(size) == \
+            jax_config.packet_size_to_num_quantized_bits(size)
+    assert config.version_string() == jax_config.version_string()
     config.check_params_supported(16000, 1, root)

@@ -2,11 +2,12 @@
 
 The GPU machine has no jax, and the port keeps its own copies of what it
 needs from the JAX package.  A subprocess installs a `sys.meta_path` finder
-that raises on any import of jax, jaxlib or the top-level `lyra_tpu`
-package (exactly that name: `lyra_tpu_torch` passes), imports every module
-of lyra_tpu_torch, builds both engines on the CPU from the small synthetic
-fixture and runs one tick: float at 16 kHz, then bf16 at 48 kHz (the
-resampler and the bf16 paths).
+that raises on any import of jax, jaxlib, ml_dtypes or the top-level
+`lyra_tpu` package (exactly that name: `lyra_tpu_torch` passes), imports
+every module of lyra_tpu_torch, builds both engines on the CPU from the
+small synthetic fixture and runs one tick: float at 16 kHz, then bf16 at
+48 kHz (the resampler and the bf16 paths); then a server pair ticks on the
+wire, snapshots a bf16 decoder and restores it bit for bit.
 """
 
 import os
@@ -22,7 +23,7 @@ _CHILD = textwrap.dedent("""
     import pkgutil
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "lyra_tpu")
+    BLOCKED = ("jax", "jaxlib", "ml_dtypes", "lyra_tpu")
 
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -41,7 +42,7 @@ _CHILD = textwrap.dedent("""
         lyra_tpu_torch.__path__, "lyra_tpu_torch.")]
     for name in modules:
         importlib.import_module(name)
-    assert len(modules) >= 25, modules
+    assert len(modules) >= 30, modules
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler
@@ -77,6 +78,26 @@ _CHILD = textwrap.dedent("""
     assert y.shape == (1, 160)
     assert StreamingResampler(8000, 16000).resample(
         np.zeros(160, np.int16)).shape == (320,)
+
+    import os, tempfile
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+    enc = EncoderServer(2, engine=EncoderEngine(16000, path, device="cpu"),
+                        bitrate=6000)
+    dec = DecoderServer(2, engine=DecoderEngine(16000, path, mode="bf16",
+                                                device="cpu"))
+    for srv in (enc, dec):
+        srv.add_streams(["a", "b"])
+    hop = np.random.default_rng(2).normal(0, 3000, (2, 320)).astype(np.int16)
+    wire, sizes = enc.tick_wire(hop)
+    assert wire.shape == (2, 15) and list(sizes) == [15, 15]
+    assert dec.tick_wire(wire, sizes > 0, sizes).dtype == np.int16
+    with tempfile.TemporaryDirectory() as tmp:
+        dec.save(os.path.join(tmp, "dec"))
+        back = DecoderServer(2, engine=dec.engine)
+        back.restore(os.path.join(tmp, "dec"))
+    for k, v in dec._state["gan"].items():
+        assert torch.equal(back._state["gan"][k].view(torch.int16),
+                           v.view(torch.int16)), k
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_TICK_OK")
 """)
