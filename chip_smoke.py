@@ -16,21 +16,30 @@ Phases, one line each; any failed check raises and exits nonzero:
               process per source, started together;
   2. K1       the fused conv stack vs the plain executor (SoundStream and
               LyraGAN, B=64, 20 frames, state carried, TF32 off; bar
-              1e-5 × max|plain|), then every f32 conv-stack kernel call of
-              one hop vs its plain version (cuDNN, TF32 off) at B=1024
-              (bar 1e-5 × max|plain|), timed per hop in 7 alternating
-              rounds (kernel, plain and one cuDNN call with the weights
-              laid out beforehand; eager launches and CUDA-graph
-              replays), with each kernel's FLOP, bytes, bound and shares
-              of 67 TFLOP/s FP32 and 3.35 TB/s; each depthwise call's
-              launch plan is printed, checked against
-              conv_stack.depthwise_plan, and its two launches must give
-              the same bits;
+              1e-5 × max|plain|); bitwise equal to the unfused kernel path
+              (the same kernels without fused operands, every other op a
+              torch op), output and state, over 20 frames at B=64 and
+              B=1024; one eager hop at B=1024 under torch.profiler, whose
+              span around the core ("fused_stack.core") must hold only
+              conv-stack kernels, one per launch of the plan; then every
+              fused launch of one hop at B=1024 on random operands of its
+              shapes vs its plain version (the graph's torch ops around
+              the plain conv, TF32 off; bar 1e-5 × max|plain|, new state
+              rows bitwise), timed per hop in 7 alternating rounds
+              (kernel, plain and the same torch ops around one cuDNN call
+              with the weights laid out beforehand; eager launches and
+              CUDA-graph replays), with each kernel's FLOP, bytes (the
+              fused operands: state and x rows read, residual, output and
+              new state rows), bound and shares of 67 TFLOP/s FP32 and
+              3.35 TB/s; each depthwise launch's plan is printed, checked
+              against conv_stack.depthwise_plan, and its two launches must
+              give the same bits;
   3. K1-bf16  the same in bf16 mode: the fused stack vs the plain bf16
               executor and vs the plain f32 one (bar 3e-2 × max|plain|),
-              then every bf16 kernel call of one hop at B=1024 vs its
-              plain bf16 version (bar 2^-7 × max|ref|, two bf16
-              roundings), timed and checked the same way, with shares of
+              the profiled hop's core span, then every bf16 fused launch
+              of one hop at B=1024 vs its plain bf16 version (bar 2^-7 ×
+              max|ref|: the plain version rounds after every op, the
+              kernel once), timed and checked the same way, with shares of
               989 TFLOP/s bf16 and 3.35 TB/s;
   4. K2       the RVQ kernel vs its plain version at B=4096: rows may
               differ only at near-ties, at most 0.1% of rows; then timed
@@ -50,7 +59,11 @@ Phases, one line each; any failed check raises and exits nonzero:
               last 3 ticks in a torch.profiler window that must name each
               kernel and count 1/3 of its launches in the replays (it also
               gives device µs per tick, all kernels and each of the
-              path's; the SM clock is sampled over the 50 ticks), output
+              path's, and the count of all CUDA kernels per replayed tick,
+              beside that of fresh engines whose cores run unfused;
+              the SM clock is sampled over the 50 ticks), then 3 eager
+              ticks under the profiler, whose kernels' device time is
+              split into the conv stacks' core spans and the rest, output
               finite at speech level,
               and the kernel path's decoder vs the plain path's on the
               same indices (within 2 int16 LSB);
@@ -234,7 +247,7 @@ def phase_k1(path, batch, dev, stats, gpu):
     from lyra_tpu_torch.tflite.executor import load_graph
 
     rng = np.random.default_rng(1)
-    worst, calls, plans = {}, [], []
+    worst, calls, plans, lines = {}, [], [], []
     for name, shape, scale in MODELS:
         p = os.path.join(path, f"{name}.tflite")
         fused, plain = FusedStack(p, device=dev), load_graph(p, device=dev)
@@ -251,30 +264,16 @@ def phase_k1(path, batch, dev, stats, gpu):
             check(rel <= REL_TOL, f"K1 {name}: rel err {rel} > {REL_TOL}")
             err = max(err, rel)
         worst[name] = err
-        # Every kernel call of one hop at the main path's batch, vs plain.
-        for kernel, fn, plain_fn, (t_in, c_in), w, bias, extra in \
-                fused.conv_launches():
-            x = torch.randn((batch, t_in, c_in), device=dev)
-            got, ref = fn(x, w, bias, *extra), plain_fn(x, w, bias, *extra)
-            tol = REL_TOL * ref.abs().max().item()
-            abs_err = (got - ref).abs().max().item()
-            check(abs_err <= tol, f"K1 {kernel.name} {tuple(x.shape)}: "
-                  f"abs err {abs_err} > {tol}")
-            s = stats[kernel.name]
-            s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-            s["calls"] += 1
-            if kernel is conv_stack.DEPTHWISE:
-                plans.append(_depthwise_call(fn, x, w, bias, extra, got))
-            lib = partial(_library(kernel.name, w, bias, extra, c_in), x)
-            lib_err = (lib().float() - ref.float()).abs().max().item()
-            check(lib_err <= tol, f"library {kernel.name}: abs err {lib_err}")
-            calls.append((kernel.name, partial(fn, x, w, bias, *extra),
-                          partial(plain_fn, x, w, bias, *extra), lib,
-                          _work(kernel.name, x, w, bias, extra, ref)))
+        lines.append(f"{name}: {_bitwise_unfused(fused, shape, scale, dev)}; "
+                     f"{_core_kernels(fused, shape, scale, batch, dev)}")
+        # Every fused launch of one hop at the main path's batch, vs plain.
+        calls += _fused_calls("K1", fused, batch, dev, torch.float32, REL_TOL,
+                              stats, plans)
     print(f"K1 vs plain: ok, max rel err soundstream "
           f"{worst['soundstream_encoder']:.3e}, lyragan {worst['lyragan']:.3e} "
-          f"(B=64, 20 frames, bar {REL_TOL}); per-hop kernel calls at "
-          f"B={batch} within {REL_TOL} x max|plain|: "
+          f"(B=64, 20 frames, bar {REL_TOL}); {'; '.join(lines)}; per-hop "
+          f"fused launches at B={batch} within {REL_TOL} x max|plain|, new "
+          f"state rows bitwise: "
           + ", ".join(f"{k.name} {stats[k.name]['calls']} calls max abs err "
                       f"{stats[k.name]['max_abs_err']:.3e}"
                       for k in conv_stack.KERNELS_F32))
@@ -316,33 +315,14 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
         check(err32 <= bar, f"K1-bf16 {name}: vs plain f32 {err32} > {bar}")
         lines.append(f"{name} vs plain bf16 {err16:.3e}, vs plain f32 "
                      f"{err32:.3e}, plain bf16 vs plain f32 {plain_dev:.3e}, "
-                     f"bar {bar:.3e}")
-        # Every bf16 kernel call of one hop at the main path's batch.
-        for kernel, fn, plain_fn, (t_in, c_in), w, bias, extra in \
-                fused.conv_launches():
-            x = torch.randn((batch, t_in, c_in), device=dev,
-                            dtype=torch.bfloat16)
-            got, ref = fn(x, w, bias, *extra), plain_fn(x, w, bias, *extra)
-            check(got.dtype == ref.dtype == torch.bfloat16,
-                  f"K1-bf16 {kernel.name}: dtype {got.dtype}")
-            tol = BF16_CALL_TOL * ref.float().abs().max().item()
-            abs_err = (got.float() - ref.float()).abs().max().item()
-            check(abs_err <= tol, f"K1-bf16 {kernel.name} {tuple(x.shape)}: "
-                  f"abs err {abs_err} > {tol}")
-            s = stats[kernel.name]
-            s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-            s["calls"] += 1
-            if kernel is conv_stack.DEPTHWISE_BF16:
-                plans.append(_depthwise_call(fn, x, w, bias, extra, got))
-            lib = partial(_library(kernel.name, w, bias, extra, c_in), x)
-            lib_err = (lib().float() - ref.float()).abs().max().item()
-            check(lib_err <= tol, f"library {kernel.name}: abs err {lib_err}")
-            calls.append((kernel.name, partial(fn, x, w, bias, *extra),
-                          partial(plain_fn, x, w, bias, *extra), lib,
-                          _work(kernel.name, x, w, bias, extra, ref)))
+                     f"bar {bar:.3e}; "
+                     f"{_core_kernels(fused, shape, scale, batch, dev)}")
+        # Every bf16 fused launch of one hop at the main path's batch.
+        calls += _fused_calls("K1-bf16", fused, batch, dev, torch.bfloat16,
+                              BF16_CALL_TOL, stats, plans)
     print(f"K1-bf16 vs plain: ok, max rel err {'; '.join(lines)} (B=64, 20 "
-          f"frames); per-hop bf16 kernel calls at B={batch} within "
-          f"{BF16_CALL_TOL} x max|ref|: "
+          f"frames); per-hop bf16 fused launches at B={batch} within "
+          f"{BF16_CALL_TOL} x max|ref|, new state rows bitwise: "
           + ", ".join(f"{k.name} {stats[k.name]['calls']} calls max abs err "
                       f"{stats[k.name]['max_abs_err']:.3e}"
                       for k in conv_stack.KERNELS_BF16))
@@ -351,31 +331,148 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
                  PEAK_BF16_FLOPS, "bf16")
 
 
-def _depthwise_call(fn, x, w, bias, extra, got):
-    """One depthwise kernel call: a second launch on the same inputs must
-    give the same bits, and the plan the launcher took for these operands
-    (lyra_depthwise_plan, given their pointers) must be
-    conv_stack.depthwise_plan's.  Returns the plan, described."""
+def _bitwise_unfused(fused, shape, scale, dev):
+    """In f32 the fused stack gives the bits of the unfused kernel path
+    (the same kernels without fused operands, every other op a torch op):
+    output and every state leaf, 20 frames with state carried, at B=64 and
+    at the main path's batch."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    for b in (64, BATCH):
+        fs = us = fused.init_state(b)
+        for t in range(20):
+            x = torch.tensor(rng.normal(0.0, scale, (b,) + shape),
+                             dtype=torch.float32, device=dev)
+            y, fs = fused(fs, x)
+            u, us = fused.unfused(us, x)
+            check(torch.equal(y, u), f"K1 fused vs unfused: output differs "
+                  f"at B={b}, frame {t}")
+            for k in us:
+                check(torch.equal(fs[k], us[k]), f"K1 fused vs unfused: "
+                      f"state {k} differs at B={b}, frame {t}")
+    return "f32 fused stack bitwise equal to the unfused kernel path (B=64 " \
+           f"and B={BATCH}, 20 frames, output and state)"
+
+
+def _core_kernels(fused, shape, scale, batch, dev):
+    """One eager hop under torch.profiler: every CUDA kernel inside the
+    core's span (CORE_SPAN, the record_function around the plan's
+    launches, as the profiler places it on the device's timeline) must be
+    a conv-stack kernel, one per launch of the plan."""
+    import torch
+
+    from lyra_tpu_torch.ops import conv_stack
+
+    x = torch.tensor(np.random.default_rng(8).normal(0.0, scale,
+                                                     (batch,) + shape),
+                     dtype=torch.float32, device=dev)
+    state = fused.init_state(batch)
+    fused(state, x)  # warm-up: cuDNN's first calls
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused(state, x)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == cuda]
+    spans = [e for e in dev_events if e.name == CORE_SPAN]
+    check(len(spans) == 1, f"profiler: {len(spans)} device spans of the core")
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    inside = [e.name for e in dev_events if e is not spans[0]
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    foreign = [n for n in inside
+               if not any(_own(k, n) for k in conv_stack.KERNELS)]
+    check(not foreign, f"profiler: kernels other than the conv-stack "
+          f"kernels inside the core's span: {sorted(set(foreign))}")
+    check(len(inside) == len(fused.plan),
+          f"profiler: {len(inside)} kernels in the core's span for "
+          f"{len(fused.plan)} launches")
+    return (f"profiled eager hop at B={batch}: the core's span holds "
+            f"{len(inside)} CUDA kernels, all conv-stack kernels, one per "
+            f"launch")
+
+
+def _fused_calls(phase, fused, batch, dev, dtype, bar, stats, plans):
+    """Each fused launch of one hop at `batch` on random operands of its
+    shapes vs its plain version (|err| ≤ bar × max|plain|; the new state
+    rows bit for bit) and vs the library yardstick; → the timing calls."""
+    import torch
+
+    from lyra_tpu_torch.ops import conv_stack
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    calls = []
+    for launch in fused.plan:
+        t_x, c_x = launch.x_shape
+
+        def rand(*shape):
+            return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+        x = rand(batch, t_x, c_x)
+        state = res = None
+        if launch.state is not None:
+            state = rand(batch, launch.in_shape[0] - t_x, c_x)
+        if launch.res is not None:
+            res = rand(batch, *launch.out_shape)
+        got, ref = launch(x, state, res), launch.plain(x, state, res)
+        out, side = got if launch.side else (got, None)
+        ref_out, ref_side = ref if launch.side else (ref, None)
+        name = f"{phase} {launch.kernel.name} (op {launch.op})"
+        check(out.dtype == ref_out.dtype == dtype, f"{name}: dtype {out.dtype}")
+        check(side is None or torch.equal(side, ref_side),
+              f"{name}: new state rows differ")
+        tol = bar * ref_out.float().abs().max().item()
+        abs_err = (out.float() - ref_out.float()).abs().max().item()
+        check(abs_err <= tol, f"{name}: abs err {abs_err} > {tol}")
+        s = stats[launch.kernel.name]
+        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+        s["calls"] += 1
+        if launch.kind == "depthwise":
+            plans.append(_depthwise_call(launch, (x, state, res), got))
+        lib = partial(_library(launch), x, state, res)
+        lib_out = lib()
+        lib_out = lib_out[0] if launch.side else lib_out
+        lib_err = (lib_out.float() - ref_out.float()).abs().max().item()
+        check(lib_err <= tol, f"library {name}: abs err {lib_err}")
+        calls.append((launch.kernel.name, partial(launch, x, state, res),
+                      partial(launch.plain, x, state, res), lib,
+                      _work(launch, x, state, res, out, side)))
+    return calls
+
+
+def _depthwise_call(launch, operands, got):
+    """One fused depthwise launch: a second launch on the same operands
+    must give the same bits, and the plan the launcher took for them
+    (lyra_depthwise_plan, given the pointers, all 16-byte aligned or not)
+    must be conv_stack.depthwise_plan's.  Returns the plan, described."""
     import ctypes
 
     import torch
 
     from lyra_tpu_torch.ops import conv_stack
 
-    name = f"depthwise {tuple(x.shape)} d={extra[0]}"
-    check(torch.equal(fn(x, w, bias, *extra), got),
-          f"{name}: two launches differ")
-    b, t_in, c = x.shape
-    k, d = w.shape[0], extra[0]
-    ptrs = [None if t is None else t.data_ptr() for t in (x, w, bias, got)]
-    plan = conv_stack.depthwise_plan(
-        (b, t_in, c), k, d, dtype=x.dtype,
-        aligned=all(p is None or p % 16 == 0 for p in ptrs))
-    out = (ctypes.c_int * 7)()
+    x, state, res = operands
+    out = got[0] if launch.side else got
+    again = launch(*operands)
+    again = again[0] if launch.side else again
+    name = f"depthwise {launch.in_shape} d={launch.extra[0]}"
+    check(torch.equal(again, out), f"{name}: two launches differ")
+    b, (t_in, c) = x.shape[0], launch.in_shape
+    k, d = launch.w.shape[0], launch.extra[0]
+    ops = [x, launch.w, launch.bias, out, state, res]
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in ops)
+    plan = conv_stack.depthwise_plan((b, t_in, c), k, d, dtype=x.dtype,
+                                     aligned=aligned)
+    got_plan = (ctypes.c_int * 7)()
     conv_stack._lib().lyra_depthwise_plan(
-        x.element_size(), b, t_in - (k - 1) * d, c, k, d, *ptrs, out)
-    check(tuple(out) == (plan.elems, plan.runs, *plan.block, *plan.grid),
-          f"{name}: launcher plan {tuple(out)} vs {plan}")
+        x.element_size(), b, t_in - (k - 1) * d, c, k, d,
+        *[None if t is None else t.data_ptr() for t in ops[:4]], got_plan)
+    check(not aligned or tuple(got_plan) == (
+        plan.elems, plan.runs, *plan.block, *plan.grid),
+          f"{name}: launcher plan {tuple(got_plan)} vs {plan}")
     return (f"({t_in}, {c}, {d}) {'vector' if plan.vec else 'scalar'} "
             f"{plan.elems}/thread J={plan.runs} block {plan.block} grid "
             f"{plan.grid}")
@@ -386,14 +483,20 @@ def _print_depthwise_plans(phase, batch, plans):
           f"call's two launches bitwise equal: " + "; ".join(plans))
 
 
-def _library(name, w, bias, extra, c_in):
-    """The library yardstick of one conv call: x ↦ one cuDNN call
-    (F.conv2d or F.conv_transpose2d, TF32 off) on x [B, T, C] seen as
-    [B, C, T, 1] in channels-last memory, as the plain version sees it, but
-    with the weights laid out for torch once, here (channels-last too), and
-    not in every call as the plain version does."""
+def _library(launch):
+    """The library yardstick of one fused launch: the same torch ops as
+    its plain version around one cuDNN call (F.conv2d or
+    F.conv_transpose2d, TF32 off) on x [B, T, C] seen as [B, C, T, 1] in
+    channels-last memory, as the plain version sees it, but with the
+    weights laid out for torch once, here (channels-last too), and not in
+    every call as the plain version does."""
     import torch
     import torch.nn.functional as F
+
+    from lyra_tpu_torch.ops import conv_stack
+
+    w, bias, extra, c_in = launch.w, launch.bias, launch.extra, \
+        launch.in_shape[1]
 
     def once(w_t):
         return w_t.unsqueeze(-1).contiguous(memory_format=torch.channels_last)
@@ -401,45 +504,67 @@ def _library(name, w, bias, extra, c_in):
     def nchw(x):
         return x.unsqueeze(2).permute(0, 3, 1, 2)  # [B, C, T, 1], no copy
 
-    if name.startswith("depthwise"):
+    if launch.kind == "depthwise":
         w_t = once(w.t().unsqueeze(1))  # [C, 1, K, 1]
-        return lambda x: F.conv2d(nchw(x), w_t, bias, dilation=(extra[0], 1),
-                                  groups=c_in).squeeze(3).transpose(1, 2)
-    if name.startswith("transpose"):
+
+        def conv(x, *_):
+            return F.conv2d(nchw(x), w_t, bias, dilation=(extra[0], 1),
+                            groups=c_in).squeeze(3).transpose(1, 2)
+    elif launch.kind == "tconv":
         stride, t_out = extra
         w_t = once(w.permute(1, 2, 0))  # [I, O, K, 1]
-        return lambda x: F.conv_transpose2d(
-            nchw(x), w_t, bias, stride=(stride, 1))[:, :, :t_out] \
-            .squeeze(3).transpose(1, 2)
-    w_t = once(w.permute(2, 1, 0))  # [O, I_f, K, 1]
-    return lambda x: F.conv2d(nchw(x), w_t, bias, stride=(extra[0], 1),
-                              groups=c_in // w.shape[1]).squeeze(3) \
-        .transpose(1, 2)
+
+        def conv(x, *_):
+            return F.conv_transpose2d(
+                nchw(x), w_t, bias, stride=(stride, 1))[:, :, :t_out] \
+                .squeeze(3).transpose(1, 2)
+    else:
+        w_t = once(w.permute(2, 1, 0))  # [O, I_f, K, 1]
+
+        def conv(x, *_):
+            return F.conv2d(nchw(x), w_t, bias, stride=(extra[0], 1),
+                            groups=c_in // w.shape[1]).squeeze(3) \
+                .transpose(1, 2)
+    return lambda x, state, res: conv_stack.fused_plain(
+        conv, x, w, bias, extra, launch.fusion(state, res))
 
 
-def _work(name, x, w, bias, extra, out):
-    """(FLOP, bytes) of one conv call: every input (activations, weights,
-    bias) read once and the output written once, in their element type;
-    of a depthwise call's x only the rows some tap reads (where
-    T_out < dilation, 3·T_out of T_in)."""
-    b, t_in, _ = x.shape
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (x, w, bias, out) if t is not None)
-    t_out = out.shape[1]
-    if name.startswith("depthwise"):
-        k, c = w.shape
-        d = extra[0]
-        rows = len({t + kk * d for t in range(t_out) for kk in range(k)})
-        nbytes -= (t_in - rows) * b * c * x.element_size()
-        return 2 * b * t_out * c * k, nbytes
-    k, i, o = w.shape
-    if name.startswith("transpose"):  # only the taps that land
-        s = extra[0]
-        taps = sum(1 for t in range(t_out)
-                   for kk in range(t % s, min(k, t + 1), s)
-                   if (t - kk) // s < t_in)
-        return 2 * b * taps * i * o, nbytes
-    return 2 * b * t_out * k * i * o, nbytes
+def _work(launch, x, state, res, out, side):
+    """(FLOP, bytes) of one fused launch: every input element it needs
+    read once (of state and x the rows and channels some tap or the side
+    store reads: where a depthwise conv's T_out < dilation, 3·T_out of its
+    rows), the weights, bias and residual once, and the output and new
+    state rows written once, in their element type."""
+    b, e = x.shape[0], x.element_size()
+    (t_in, c_in), c_x = launch.in_shape, launch.x_shape[1]
+    c0 = launch.split[0] if launch.split else 0
+    need = np.zeros((t_in, c_x), bool)
+    k = launch.w.shape[0]
+    if launch.kind == "depthwise":
+        d = launch.extra[0]
+        t_out = t_in - (k - 1) * d
+        need[sorted({t + kk * d for t in range(t_out) for kk in range(k)})] = True
+        flop = 2 * b * t_out * c_in * k
+    elif launch.kind == "conv1d":
+        s = launch.extra[0]
+        t_out = (t_in - k) // s + 1
+        need[:(t_out - 1) * s + k, c0:c0 + c_in] = True
+        flop = 2 * b * t_out * k * launch.w.shape[1] * launch.w.shape[2]
+    else:  # only the taps that land on the kept rows
+        s, t_full = launch.extra
+        lo, hi = launch.crop or (0, t_full)
+        taps = [(t - kk) // s for t in range(lo, hi)
+                for kk in range(t % s, min(k, t + 1), s)
+                if (t - kk) // s < t_in]
+        need[sorted(set(taps)), c0:c0 + c_in] = True
+        flop = 2 * b * len(taps) * launch.w.shape[1] * launch.w.shape[2]
+    if launch.side is not None:
+        _, begin, rows = launch.side
+        need[begin:begin + rows] = True
+    nbytes = int(need.sum()) * b * e + sum(
+        t.numel() * t.element_size()
+        for t in (launch.w, launch.bias, res, out, side) if t is not None)
+    return flop, nbytes
 
 
 def _graph(fn, reps):
@@ -704,16 +829,42 @@ def _device_us(prof):
     return {n: us for n, (us, _) in _device_events(prof).items()}
 
 
+CORE_SPAN = "fused_stack.core"  # FusedStack's record_function
+
+
 def _device_events(prof):
     """(device µs, count) of each CUDA event name in a profiler window,
-    without the profiler's own step ranges ("ProfilerStep*", which span
-    whole steps on the device's timeline)."""
+    without the ranges that span other events on the device's timeline:
+    the profiler's own steps ("ProfilerStep*") and the conv stacks' core
+    spans."""
     import torch
 
     return {e.key: (e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")}
+            and not e.key.startswith("ProfilerStep") and e.key != CORE_SPAN}
+
+
+def _core_split(prof):
+    """(device µs inside the conv stacks' core spans, device µs of all
+    kernels) of an eager profiler window: the kernels' own intervals,
+    without the range events."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events()
+              if getattr(e, "device_type", None) == cuda]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == CORE_SPAN]
+    inside = total = 0.0
+    for e in events:
+        if e.name == CORE_SPAN or e.name.startswith("ProfilerStep"):
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        total += hi - lo
+        if any(a <= lo and hi <= b for a, b in spans):
+            inside += hi - lo
+    return inside, total
 
 
 def _profile_ticks(tick, n=3):
@@ -733,6 +884,46 @@ def _profile_ticks(tick, n=3):
             torch.cuda.synchronize()
             prof.step()
     return prof
+
+
+def _kernels_per_replayed_tick(enc, dec, batch, dev):
+    """All CUDA kernels (device copies and fills not counted) per replayed
+    tick of `enc`/`dec`'s captured steps, from 3 profiled ticks."""
+    audio, received = _inputs(batch, 8, dev, enc.hop_samples)
+    state = [enc.init_state(batch), dec.init_state(batch)]
+
+    def tick(i):
+        _, _, state[0], state[1], _ = _tick(enc, dec, *state, audio[i],
+                                            received[i], 120)
+
+    for i in range(4):  # warm-up and both captures of each step
+        tick(i)
+    events = _device_events(_profile_ticks(lambda i: tick(4 + i)))
+    return sum(c for n, (_, c) in events.items()
+               if not n.startswith(("Memcpy", "Memset"))) / 3
+
+
+class _UnfusedStack:
+    """A FusedStack whose hop runs op by op (`FusedStack.unfused`: the
+    kernels without fused operands, every other op a torch op)."""
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    def init_state(self, batch_size):
+        return self.fused.init_state(batch_size)
+
+    def __call__(self, state, x):
+        return self.fused.unfused(state, x)
+
+
+def _unfused(engines):
+    """The engines with their conv stacks' cores unfused, for a count
+    against the fused core."""
+    enc, dec = engines
+    for model in (enc.soundstream, dec.gan):
+        model._run = _UnfusedStack(model._run)
+    return enc, dec
 
 
 def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
@@ -797,6 +988,17 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
           f"main path: launches {launches} are not 3 x the launches per "
           f"replayed tick (profiler, 3 ticks: {counted})")
     per_tick_launches = {n: c // 3 for n, c in counted.items()}
+    # Where an eager tick's device time goes: inside the two conv stacks'
+    # cores, or elsewhere (DSP, PLC, comfort noise, masks, edges, copies).
+    ees, eds = enc.init_state(batch), dec.init_state(batch)
+    _tick(enc, dec, ees, eds, audio[0], received[0], num_bits, eager=True)
+    eager = _profile_ticks(lambda i: _tick(enc, dec, ees, eds, audio[i],
+                                           received[i], num_bits, eager=True))
+    core_us, all_us = (v / 3 for v in _core_split(eager))
+    # Every CUDA kernel of a replayed tick, the path's and torch's (device
+    # copies and fills not counted).
+    all_kernels = sum(c for n, (_, c) in events.items()
+                      if not n.startswith(("Memcpy", "Memset"))) / 3
     if profile_file:
         os.makedirs(os.path.dirname(profile_file), exist_ok=True)
         with open(profile_file, "w") as f:
@@ -807,11 +1009,15 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         f"of hops lost, audio RMS {rms:.1f} (int16), {cn_count} "
         f"comfort-noise stream-hops; launches over the run (warm-up and two "
         f"captures of each step) { {k.name: launches[k.name] for k in kernels} }"
-        f", per replayed tick (profiler) {per_tick_launches}; device µs per "
+        f", per replayed tick (profiler) {per_tick_launches}, all CUDA "
+        f"kernels per replayed tick {all_kernels:g}; device µs per "
         f"captured tick (last 3 ticks): "
         f"all {sum(us for us, _ in events.values()) / 3:.1f}, "
         + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items())
-        + f"; over the {ticks} ticks {clocks.summary()}")
+        + f"; over the {ticks} ticks {clocks.summary()}; an eager tick's "
+        f"kernels (profiler, 3 ticks): {all_us:.1f} device µs per tick, "
+        f"{core_us:.1f} inside the conv stacks' core spans, "
+        f"{all_us - core_us:.1f} outside them")
 
 
 def phase_main(path, batch, ticks, dev, profile_out):
@@ -824,6 +1030,9 @@ def phase_main(path, batch, ticks, dev, profile_out):
         enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile.txt"))
+    unfused = _kernels_per_replayed_tick(*_unfused(
+        (EncoderEngine(16000, path, device=dev),
+         DecoderEngine(16000, path, device=dev))), batch, dev)
     audio, received = _inputs(batch, ticks, dev)
     num_bits = 120
 
@@ -845,7 +1054,8 @@ def phase_main(path, batch, ticks, dev, profile_out):
     check(worst_lsb <= 2.0, f"kernel vs plain decoder: {worst_lsb} LSB")
     check(same_idx >= 0.99, f"kernel vs plain encoder: {same_idx:.4f} rows "
           f"with identical indices")
-    print(f"main path: ok, {summary}; vs plain path (B={b_ref}, 10 "
+    print(f"main path: ok, {summary}; with the cores unfused {unfused:g} "
+          f"CUDA kernels per replayed tick; vs plain path (B={b_ref}, 10 "
           f"ticks): rows with identical indices {same_idx:.4f}, decoder max "
           f"diff {worst_lsb} LSB")
     return launches, per_tick
@@ -889,6 +1099,9 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
         enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile_bf16.txt"))
+    unfused = _kernels_per_replayed_tick(*_unfused(
+        (EncoderEngine(rate, path, mode="bf16", device=dev),
+         DecoderEngine(rate, path, mode="bf16", device=dev))), batch, dev)
 
     b_ref = min(batch, 64)
     audio, received = _inputs(b_ref, 10, dev, enc.hop_samples)
@@ -924,7 +1137,9 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
     for k in err:
         check(err[k] <= bars[k], f"main-bf16: kernel vs plain bf16 {k} "
               f"rel err {err[k]} > {bars[k]}")
-    print(f"main-bf16 path: ok, {summary}; vs plain bf16 path (B={b_ref}, 10 "
+    print(f"main-bf16 path: ok, {summary}; with the cores unfused "
+          f"{unfused:g} CUDA kernels per replayed tick; vs plain bf16 path "
+          f"(B={b_ref}, 10 "
           f"ticks, identical inputs): indices identical, max rel err "
           f"features {err['features']:.3e}, audio {err['audio']:.3e}; plain "
           f"bf16 vs plain f32: features {plain_dev['features']:.3e}, audio "

@@ -1,13 +1,23 @@
 // Conv-stack kernels for the streaming SoundStream / LyraGAN core on Hopper.
 //
-// Replaces the conv lowerings of the Pallas megakernel
-// lyra_tpu/ops/fused_stack.py (FusedStackKernel._make_kernel: _conv,
-// _depthwise, _tconv; pallas_call built in _build_call, fused_stack.py:488).
-// The Pallas kernel ran the whole multi-channel core of a graph for a block
-// of 64 streams in VMEM; here each conv op of the core is one launch over
-// channels-last [B, T, C] activations, and the elementwise / data-movement
-// ops between them stay torch ops (ops/fused_stack.py drives them in graph
-// order).
+// Replace the Pallas megakernel lyra_tpu/ops/fused_stack.py
+// (FusedStackKernel._make_kernel, pallas_call built in _build_call,
+// fused_stack.py:488), which ran the whole multi-channel core of a graph for
+// a block of 64 streams in VMEM.  Here each conv op of the core is one
+// launch over channels-last [B, T, C] activations, and the launch absorbs
+// the graph ops around it (ops/fused_stack.py plans them from the graph's
+// dataflow; see "fused operands" below): the state CONCATENATION ahead of
+// its input, read from two pointers, a SPLIT's channel offset, LEAKY_RELU
+// on load, and on its output the residual ADD/SUB, a transpose conv's
+// STRIDED_SLICE crop and LEAKY_RELU; the new state (STRIDED_SLICE →
+// ASSIGN_VARIABLE) is a side store of the same launch.  So no other kernel
+// runs between the core's first conv and its last.  Each kernel family has
+// a template flag FUSED; the FUSED=false instances are the plain convs.  In
+// f32 the fused ops apply to the finished sum in the graph's order (with
+// __fmul_rn / __fadd_rn, never contracted into an FMA), so a fused launch
+// gives the bits of the plain kernel followed by the graph's torch ops.
+// One persistent kernel for the whole stack (the Pallas design) is the
+// next step.
 //
 // Two element types: float32 (conv1d_fwd, depthwise_conv1d_fwd,
 // transpose_conv1d_fwd) and bfloat16 (the *_bf16 kernels), the Pallas
@@ -78,7 +88,9 @@
 //       - MmaBf16: BK = 32, 4 warps, ldmatrix for A and ldmatrix.trans for
 //         the row-major B tile, mma.sync m16n8k16 bf16 → f32; epilogue
 //         + f32(bias), one rounding, staged through shared memory and
-//         written as 16-byte row chunks.
+//         written as 16-byte row chunks (FUSED: staged unrounded in f32,
+//         the output ops applied as the chunks are written, the residual
+//         read in 16-byte chunks ahead of the stores, one rounding).
 //       - FfmaF32: BK = 16, one thread per TM × TN micro-tile of
 //         accumulators in registers: 8 × 4 at 128×64 and 4 × 4 at 64×64
 //         (256 threads), 4 × 2 at 64×32 (256) and 32×32 (128), 4 × 1 at
@@ -91,7 +103,8 @@
 //         in one thread — the old kernels' order, so results stay within
 //         rounding of them and two launches are bitwise equal.  Outputs go
 //         straight from registers to global memory as float4 / float2
-//         pieces, a grid row of threads writing consecutive floats.
+//         pieces, a grid row of threads writing consecutive floats (FUSED:
+//         through the output ops, the micro-tile's residual loaded first).
 //     Per hop it stays well below the FP32 peak (PERF.md §6): most
 //     calls are 1-4 k-tiles deep or have few blocks, where the fixed cost
 //     of a launch and one block's load latency dominate.  Shared-memory
@@ -122,6 +135,21 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// The fused operands of one launch (see "fused operands" below), the C
+// struct every launcher takes; null → the plain kernel.
+// ops/conv_stack.py:_FusedOps has the same layout.
+struct FusedOps {
+  const void* state;
+  const void* res;
+  void* side;
+  int T_s, ld, c_off;
+  int res_mode;  // 1 out + res, 2 out − res, 3 res − out
+  int crop0;
+  int side_begin, side_rows;
+  int leaky_in, leaky_res, leaky_out;
+  float alpha_in, alpha_res, alpha_out;
+};
 
 namespace {
 
@@ -194,26 +222,6 @@ __device__ __forceinline__ void store_floats(bf16* p, const float (&v)[N]) {
   }
 }
 
-// -- depthwise (depthwise_conv1d_fwd*) ----------------------------------------
-
-constexpr int kDwThreads = 256;  // most threads per block
-constexpr int kDwTaps = 3;       // the taps of every Lyra depthwise conv
-// J, the outputs per thread for K = kDwTaps (other K run J = 1): of the
-// constant runs 1, 2, 4 and 8, 2 took the least time over a hop of the
-// full-width fixture at B=1024 in both element types (PERF.md §6).
-constexpr int kDwRun = 2;
-constexpr int kMaxGridYZ = 65535;
-
-// One launch's operands; phases = min(dilation, T_out).
-template <typename T>
-struct DwArgs {
-  const T* x;
-  const T* w;
-  const T* bias;
-  T* out;
-  int T_in, C, T_out, K, dilation, phases;
-};
-
 // V consecutive elements at p as floats, through the read-only data path:
 // one 16-byte load where V elements are 16 bytes (p then 16-byte aligned).
 template <int V>
@@ -243,6 +251,193 @@ __device__ __forceinline__ void ldg_vec(float (&v)[V], const bf16* p) {
   }
 }
 
+// -- fused operands -------------------------------------------------------------
+// The graph ops a conv launch absorbs (ops/fused_stack.py builds the plan):
+//   input side   x's rows follow T_s rows of state (CONCATENATION of a
+//                READ_VARIABLE with x, read from two pointers of row width
+//                ld), the conv reads channels c_off.. of them (SPLIT), and
+//                x's rows may pass a LEAKY_RELU on load;
+//   output side  on the finished f32 sum (bias included), in this order:
+//                the residual (ADD, or SUB either way round, of a tensor in
+//                the output's layout, itself through a LEAKY_RELU on load
+//                where asked), then a LEAKY_RELU; one rounding after them;
+//                a transpose conv writes only the rows [crop0, crop0 +
+//                T_out) of its result (STRIDED_SLICE);
+//   side store   the new state, rows [side_begin, side_begin + side_rows)
+//                of the input (state rows then x rows, x's through the load
+//                LEAKY_RELU), STRIDED_SLICE → ASSIGN_VARIABLE.
+// The threads of a launch (of a depthwise launch, those of one stream's
+// blocks) share the side store before their own work; the new state is a
+// buffer of its own, so no thread reads what another writes.
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<bf16>(bf16 v) {
+  return __bfloat162float(v);
+}
+
+// LEAKY_RELU as the executor computes it (x >= 0 ? x : x · alpha) on a
+// value held in element type T: the product rounded once to T.
+template <typename T>
+__device__ __forceinline__ float leaky_stored(float v, float alpha) {
+  return v >= 0.0f ? v : to_f32<T>(from_f32<T>(__fmul_rn(v, alpha)));
+}
+
+// On an f32 sum before its one rounding.  __fmul_rn / __fadd_rn keep nvcc
+// from contracting these into an FMA: the unfused path rounds each op.
+__device__ __forceinline__ float leaky_f32(float v, float alpha) {
+  return v >= 0.0f ? v : __fmul_rn(v, alpha);
+}
+
+// The fused operands in a kernel's element type.
+template <typename T>
+struct Fused {
+  const T* state;
+  const T* res;
+  T* side;
+  int T_s, ld, c_off, res_mode, crop0, side_begin, side_rows, side_vec;
+  int leaky_in, leaky_res, leaky_out;
+  float alpha_in, alpha_res, alpha_out;
+
+  // A value of an input row as loaded: x's rows (x_row) through the load
+  // LEAKY_RELU where asked, state rows as they are.
+  __device__ __forceinline__ float in(float v, bool x_row) const {
+    return leaky_in && x_row ? leaky_stored<T>(v, alpha_in) : v;
+  }
+
+  // The output ops on the finished sum v, r the element of the residual
+  // at the same place (if any) as loaded.
+  __device__ __forceinline__ float out(float v, float r) const {
+    if (res != nullptr) {
+      if (leaky_res) r = leaky_stored<T>(r, alpha_res);
+      v = res_mode == 1   ? __fadd_rn(v, r)
+          : res_mode == 2 ? __fsub_rn(v, r)
+                          : __fsub_rn(r, v);
+    }
+    return leaky_out ? leaky_f32(v, alpha_out) : v;
+  }
+};
+
+bool aligned16_or_null(const void* p) {
+  return p == nullptr || aligned16(p);
+}
+
+// Host: the fused operands of a launch in element type T (x: the launch's
+// x, whose alignment the side store's 16-byte path needs).
+template <typename T>
+Fused<T> fused_from(const FusedOps& f, const void* x) {
+  constexpr int ch = 16 / sizeof(T);
+  Fused<T> u;
+  u.state = static_cast<const T*>(f.state);
+  u.res = static_cast<const T*>(f.res);
+  u.side = static_cast<T*>(f.side);
+  u.T_s = f.state != nullptr ? f.T_s : 0;
+  u.ld = f.ld;
+  u.c_off = f.c_off;
+  u.res_mode = f.res_mode;
+  u.crop0 = f.crop0;
+  u.side_begin = f.side_begin;
+  u.side_rows = f.side != nullptr ? f.side_rows : 0;
+  u.side_vec = f.ld % ch == 0 && aligned16(x) && aligned16_or_null(f.state) &&
+               aligned16_or_null(f.side);
+  u.leaky_in = f.leaky_in;
+  u.leaky_res = f.leaky_res;
+  u.leaky_out = f.leaky_out;
+  u.alpha_in = f.alpha_in;
+  u.alpha_res = f.alpha_res;
+  u.alpha_out = f.alpha_out;
+  return u;
+}
+
+// The side store: dst[b, r, :] = input row side_begin + r of stream b
+// (state rows, then x's through the load LEAKY_RELU), in 16-byte pieces
+// where ld and the pointers allow.  The items (row, piece) of rows
+// (b − b0)·side_rows + r < n_rows go to the launch's threads in turn:
+// thread `tid` of `nthreads` takes items tid, tid + nthreads, ..., found
+// by steps (one division per item, for its stream; none with ONE_STREAM:
+// the rows of stream b0 alone, n_rows = side_rows), U of them loaded
+// before any is stored.  The launchers keep the item count below 2^31.
+template <typename T, bool ONE_STREAM>
+__device__ void side_store(const Fused<T>& f, const T* x, int T_x, int b0,
+                           int n_rows, int tid, int nthreads) {
+  constexpr int CH = 16 / sizeof(T);
+  constexpr int U = 16 / CH;  // 16 floats in registers
+  const int per_row = f.side_vec ? f.ld / CH : f.ld;
+  const int drow = nthreads / per_row, dpiece = nthreads - drow * per_row;
+  int row = tid / per_row, piece = tid - row * per_row;
+  while (row < n_rows) {
+    const T* src[U];
+    T* dst[U];
+    bool x_row[U];
+    int n = 0;
+    for (; n < U && row < n_rows; ++n) {
+      const int b = ONE_STREAM ? b0 : b0 + row / f.side_rows;
+      const int r = ONE_STREAM ? row : row - (b - b0) * f.side_rows;
+      const int u = f.side_begin + r;
+      const int e0 = f.side_vec ? piece * CH : piece;
+      x_row[n] = u >= f.T_s;
+      src[n] = (x_row[n] ? x + (static_cast<long long>(b) * T_x + u - f.T_s) *
+                                   f.ld
+                         : f.state + (static_cast<long long>(b) * f.T_s + u) *
+                                         f.ld) + e0;
+      dst[n] = f.side + (static_cast<long long>(b) * f.side_rows + r) * f.ld +
+               e0;
+      row += drow;
+      piece += dpiece;
+      if (piece >= per_row) {
+        piece -= per_row;
+        ++row;
+      }
+    }
+    float v[U][CH];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (k >= n) break;
+      if (f.side_vec) {
+        ldg_vec<CH>(v[k], src[k]);
+      } else {
+        v[k][0] = to_f32<T>(*src[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (k >= n) break;
+#pragma unroll
+      for (int e = 0; e < CH; ++e) v[k][e] = f.in(v[k][e], x_row[k]);
+      if (f.side_vec) {
+        store_floats<CH>(dst[k], v[k]);
+      } else {
+        *dst[k] = from_f32<T>(v[k][0]);
+      }
+    }
+  }
+}
+
+// -- depthwise (depthwise_conv1d_fwd*) ----------------------------------------
+
+constexpr int kDwThreads = 256;  // most threads per block
+constexpr int kDwTaps = 3;       // the taps of every Lyra depthwise conv
+// J, the outputs per thread for K = kDwTaps (other K run J = 1): of the
+// constant runs 1, 2, 4 and 8, 2 took the least time over a hop of the
+// full-width fixture at B=1024 in both element types (PERF.md §6).
+constexpr int kDwRun = 2;
+constexpr int kMaxGridYZ = 65535;
+
+// One launch's operands; phases = min(dilation, T_out).  T_in counts the
+// state rows of a fused launch too (x holds T_in − T_s rows).
+template <typename T>
+struct DwArgs {
+  const T* x;
+  const T* w;
+  const T* bias;
+  T* out;
+  int T_in, C, T_out, K, dilation, phases;
+  Fused<T> f;  // read only by the FUSED kernels
+};
+
 // DEPTHWISE_CONV_2D over time, VALID, stride 1, dilation d:
 //   out[b, t, c] = bias[c] + Σ_k x[b, t + k·d, c] · w[k, c]
 // Thread (f, r) of grid layer b = blockIdx.z (the stream), f along x and r
@@ -253,9 +448,24 @@ __device__ __forceinline__ void ldg_vec(float (&v)[V], const bf16* p) {
 // row per output: a run of n outputs loads n + K − 1 rows, each once.
 // Each accumulator starts at f32(bias) and takes k = 0 .. K−1 in order
 // with fmaf.  KT is K at compile time; KT = 0 takes K at run time (J = 1,
-// weights read per tap).
-template <typename T, int V, int J, int KT>
+// weights read per tap).  FUSED: input row u is state row u (u < T_s) or
+// x row u − T_s, the latter through the load LEAKY_RELU; each output
+// passes the output ops before its store; all threads share the side
+// store first (the C = ld channels of a row: a depthwise conv has no
+// SPLIT).
+template <typename T, int V, int J, int KT, bool FUSED>
 __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
+  const long long bz = blockIdx.z;
+  if constexpr (FUSED) {
+    if (a.f.side != nullptr) {  // stream bz's rows, by its blocks' threads
+      const int per_block = blockDim.x * blockDim.y;
+      side_store<T, true>(
+          a.f, a.x, a.T_in - a.f.T_s, blockIdx.z, a.f.side_rows,
+          (blockIdx.y * gridDim.x + blockIdx.x) * per_block +
+              threadIdx.y * blockDim.x + threadIdx.x,
+          gridDim.x * gridDim.y * per_block);
+    }
+  }
   const int nv = a.C / V;
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
@@ -265,10 +475,36 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
   const int t = p + r * J * a.dilation;
   if (t >= a.T_out) return;  // also every r past the last run
   const int step = a.dilation * a.C;  // one tap, or one output, further
-  const T* x = a.x + static_cast<long long>(blockIdx.z) * a.T_in * a.C +
-               t * a.C + c;
-  T* out = a.out + static_cast<long long>(blockIdx.z) * a.T_out * a.C +
-           t * a.C + c;
+  const T* x = a.x + bz * a.T_in * a.C + t * a.C + c;
+  T* out = a.out + bz * a.T_out * a.C + t * a.C + c;
+  // FUSED: offsets of input row 0's channel c in x and in the state, as
+  // if row 0 lay in each.
+  const long long x0 = (bz * (a.T_in - a.f.T_s) - a.f.T_s) * a.C + c;
+  const long long s0 = bz * a.f.T_s * a.C + c;
+  // Input row t + m·d (m taps or outputs further) into v.
+  auto load = [&](float (&v)[V], int m) {
+    if constexpr (FUSED) {
+      const int u = t + m * a.dilation;
+      const bool x_row = u >= a.f.T_s;
+      ldg_vec<V>(v, x_row ? a.x + (x0 + u * a.C) : a.f.state + (s0 + u * a.C));
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = a.f.in(v[e], x_row);
+    } else {
+      ldg_vec<V>(v, x + m * step);
+    }
+  };
+  // Output t + j·d from its finished sums.
+  auto store = [&](float (&acc)[V], int j) {
+    if constexpr (FUSED) {
+      float rv[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) rv[e] = 0.0f;
+      if (a.f.res != nullptr) ldg_vec<V>(rv, a.f.res + (out - a.out) + j * step);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = a.f.out(acc[e], rv[e]);
+    }
+    store_floats<V>(out + j * step, acc);
+  };
   float bias[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) bias[e] = 0.0f;
@@ -280,12 +516,12 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
     for (int e = 0; e < V; ++e) acc[e] = bias[e];
     for (int k = 0; k < a.K; ++k) {
       float xv[V], wv[V];
-      ldg_vec<V>(xv, x + k * step);
+      load(xv, k);
       ldg_vec<V>(wv, a.w + k * a.C + c);
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[e] = fmaf(xv[e], wv[e], acc[e]);
     }
-    store_floats<V>(out, acc);
+    store(acc, 0);
   } else {
     int n = 0;  // outputs in this run
 #pragma unroll
@@ -294,10 +530,10 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
 #pragma unroll
     for (int k = 0; k < KT; ++k) ldg_vec<V>(w[k], a.w + k * a.C + c);
 #pragma unroll
-    for (int k = 0; k + 1 < KT; ++k) ldg_vec<V>(win[k], x + k * step);
+    for (int k = 0; k + 1 < KT; ++k) load(win[k], k);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      if (j < n) ldg_vec<V>(win[KT - 1], x + (j + KT - 1) * step);
+      if (j < n) load(win[KT - 1], j + KT - 1);
       float acc[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) {
@@ -305,7 +541,7 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
 #pragma unroll
         for (int k = 0; k < KT; ++k) acc[e] = fmaf(win[k][e], w[k][e], acc[e]);
       }
-      if (j < n) store_floats<V>(out + j * step, acc);
+      if (j < n) store(acc, j);
 #pragma unroll
       for (int k = 0; k + 1 < KT; ++k)
 #pragma unroll
@@ -314,29 +550,30 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
   }
 }
 
-// V channels per thread (16 bytes, or 1), J outputs per run, KT taps.
-template <int V, int J, int KT>
+// V channels per thread (16 bytes, or 1), J outputs per run, KT taps;
+// FUSED: with the fused operands of DwArgs::f.
+template <int V, int J, int KT, bool FUSED>
 __global__ void __launch_bounds__(kDwThreads)
     depthwise_conv1d_fwd(const DwArgs<float> a) {
-  depthwise_body<float, V, J, KT>(a);
+  depthwise_body<float, V, J, KT, FUSED>(a);
 }
 
-template <int V, int J, int KT>
+template <int V, int J, int KT, bool FUSED>
 __global__ void __launch_bounds__(kDwThreads)
     depthwise_conv1d_fwd_bf16(const DwArgs<bf16> a) {
-  depthwise_body<bf16, V, J, KT>(a);
+  depthwise_body<bf16, V, J, KT, FUSED>(a);
 }
 
-template <int V, int J, int KT>
+template <int V, int J, int KT, bool FUSED>
 void launch_dw(const DwArgs<float>& a, dim3 grid, dim3 block,
                cudaStream_t st) {
-  depthwise_conv1d_fwd<V, J, KT><<<grid, block, 0, st>>>(a);
+  depthwise_conv1d_fwd<V, J, KT, FUSED><<<grid, block, 0, st>>>(a);
 }
 
-template <int V, int J, int KT>
+template <int V, int J, int KT, bool FUSED>
 void launch_dw(const DwArgs<bf16>& a, dim3 grid, dim3 block,
                cudaStream_t st) {
-  depthwise_conv1d_fwd_bf16<V, J, KT><<<grid, block, 0, st>>>(a);
+  depthwise_conv1d_fwd_bf16<V, J, KT, FUSED><<<grid, block, 0, st>>>(a);
 }
 
 struct DwPlan {
@@ -348,20 +585,17 @@ struct DwPlan {
 
 // The launch of a depthwise call of elem_bytes-byte elements
 // (conv_stack.py:depthwise_plan is the same rule).  V is 16 bytes of
-// channels where C allows it and x, w, bias and out are 16-byte aligned,
-// else 1.  Lanes = (phase, channel vector) pairs; a block takes up to
-// kDwThreads of them along x and fills the rest of its kDwThreads with
-// runs along y, so a stream with few lanes still makes full blocks, and a
-// warp reads whole rows.
+// channels where C allows it and every operand (x, w, bias, out, and of a
+// fused launch its state and residual) is 16-byte aligned, else 1.
+// Lanes = (phase, channel vector) pairs; a block takes up to kDwThreads of
+// them along x and fills the rest of its kDwThreads with runs along y, so
+// a stream with few lanes still makes full blocks, and a warp reads whole
+// rows.
 DwPlan depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
-                      int dilation, const void* x, const void* w,
-                      const void* bias, const void* out) {
+                      int dilation, bool aligned) {
   const int ch = 16 / elem_bytes;
   DwPlan plan;
-  plan.elems = C % ch == 0 && aligned16(x) && aligned16(w) &&
-                       aligned16(out) && (bias == nullptr || aligned16(bias))
-                   ? ch
-                   : 1;
+  plan.elems = C % ch == 0 && aligned ? ch : 1;
   plan.runs = K == kDwTaps ? kDwRun : 1;
   const int phases = dilation < T_out ? dilation : T_out;
   const int lanes = phases * (C / plan.elems);
@@ -376,42 +610,69 @@ DwPlan depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
   return plan;
 }
 
-template <typename T, int V>
+template <typename T, int V, bool FUSED>
 int launch_depthwise_v(DwArgs<T> a, const DwPlan& plan, int B,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Streams beyond the grid's z limit go in further launches.
+  const int T_x = a.T_in - a.f.T_s;  // x's rows (T_s = 0 unfused)
   for (int b0 = 0; b0 < B; b0 += kMaxGridYZ) {
     const int nb = B - b0 < kMaxGridYZ ? B - b0 : kMaxGridYZ;
     const dim3 grid(plan.grid[0], plan.grid[1], nb);
     const dim3 block(plan.block[0], plan.block[1]);
     if (a.K == kDwTaps)
-      launch_dw<V, kDwRun, kDwTaps>(a, grid, block, st);
+      launch_dw<V, kDwRun, kDwTaps, FUSED>(a, grid, block, st);
     else
-      launch_dw<V, 1, 0>(a, grid, block, st);
-    a.x += static_cast<long long>(nb) * a.T_in * a.C;
+      launch_dw<V, 1, 0, FUSED>(a, grid, block, st);
+    a.x += static_cast<long long>(nb) * T_x * a.C;
     a.out += static_cast<long long>(nb) * a.T_out * a.C;
+    if (FUSED) {
+      if (a.f.state) a.f.state += static_cast<long long>(nb) * a.f.T_s * a.C;
+      if (a.f.res) a.f.res += static_cast<long long>(nb) * a.T_out * a.C;
+      if (a.f.side) a.f.side += static_cast<long long>(nb) * a.f.side_rows * a.C;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool FUSED>
+int launch_depthwise_f(const DwArgs<T>& a, const DwPlan& plan, int B,
+                       void* stream) {
+  constexpr int ch = 16 / sizeof(T);
+  if (plan.elems == ch)
+    return launch_depthwise_v<T, ch, FUSED>(a, plan, B, stream);
+  return launch_depthwise_v<T, 1, FUSED>(a, plan, B, stream);
+}
+
+// x holds T_in − T_s rows of a fused launch's input; its depthwise conv
+// reads all C = ld channels (no SPLIT) and crops nothing.
 template <typename T>
 int launch_depthwise(const T* x, const T* w, const T* bias, T* out, int B,
                      int T_in, int C, int T_out, int K, int dilation,
-                     void* stream) {
+                     const FusedOps* fused, void* stream) {
   if (B <= 0 || T_out <= 0 || C <= 0)
     return static_cast<int>(cudaGetLastError());
   // Offsets inside one stream are 32-bit; so are the run's row offsets.
   if (static_cast<long long>(T_in) * C > 0x7fffffffLL ||
       (T_out + dilation - 1) / dilation > kMaxGridYZ)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (fused != nullptr &&
+      (fused->ld != C || fused->c_off != 0 || fused->crop0 != 0 ||
+       (fused->state != nullptr && fused->T_s > T_in)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int phases = dilation < T_out ? dilation : T_out;
-  const DwArgs<T> a{x, w, bias, out, T_in, C, T_out, K, dilation, phases};
-  const DwPlan plan = depthwise_plan(sizeof(T), B, T_out, C, K, dilation, x,
-                                     w, bias, out);
-  constexpr int ch = 16 / sizeof(T);
-  if (plan.elems == ch) return launch_depthwise_v<T, ch>(a, plan, B, stream);
-  return launch_depthwise_v<T, 1>(a, plan, B, stream);
+  DwArgs<T> a{x, w, bias, out, T_in, C, T_out, K, dilation, phases, {}};
+  bool aligned = aligned16(x) && aligned16(w) && aligned16(out) &&
+                 aligned16_or_null(bias);
+  if (fused != nullptr) {
+    a.f = fused_from<T>(*fused, x);
+    aligned = aligned && aligned16_or_null(fused->state) &&
+              aligned16_or_null(fused->res);
+  }
+  const DwPlan plan = depthwise_plan(sizeof(T), B, T_out, C, K, dilation,
+                                     aligned);
+  if (fused != nullptr) return launch_depthwise_f<T, true>(a, plan, B, stream);
+  return launch_depthwise_f<T, false>(a, plan, B, stream);
 }
 
 // -- implicit GEMM (conv1d_fwd*, transpose_conv1d_fwd*) -----------------------
@@ -421,6 +682,8 @@ constexpr int kTargetBlocks = 132;  // one wave on an H100 SXM
 constexpr int kMmaThreads = 128;    // bf16: 4 warps
 
 // One launch's operands.  For the transpose conv, I_f is its I and N is O.
+// A fused launch's T_in counts its state rows too (x holds T_in − T_s),
+// and a cropped transpose conv's T_out is the rows it keeps.
 template <typename T>
 struct GemmArgs {
   const T* x;
@@ -430,6 +693,7 @@ struct GemmArgs {
   int B, T_in, C_in, T_out, O, K, I_f, stride;
   int N;    // GEMM columns: output channels per group (conv1d) or O
   int vec;  // 16-byte cp.async and stores (I_f, N multiples of 16 B)
+  Fused<T> f;  // read only by the FUSED kernels
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -481,6 +745,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Eight bf16 of the residual at p (16-byte aligned) as floats.  A plain
+// asm load without side effects: the residual is read-only for the whole
+// launch, so the compiler may issue it ahead of the tile's stores, which
+// it could not prove apart from it.
+__device__ __forceinline__ void ld_res_chunk(float (&v)[8], const bf16* p) {
+  uint4 u;
+  asm("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+      : "l"(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 t = __bfloat1622float2(h[q]);
+    v[2 * q] = t.x, v[2 * q + 1] = t.y;
+  }
+}
+
 // Math policy of the bf16 kernels: mma.sync on 4 warps, WM × WN warps each
 // on a (BM/WM) × (BN/WN) sub-tile.
 template <int BM_, int BN_, int WM, int WN>
@@ -529,13 +810,21 @@ struct MmaBf16 {
   }
 
   // + f32(bias), one rounding, staged in shared memory (the A ring, free
-  // now) as rows, written as 16-byte row chunks.
-  template <int A_RING, class RowOut>
+  // now) as rows, written as 16-byte row chunks at out + row_off(m).
+  // FUSED: staged unrounded, in f32, in all of shared memory (SMEM
+  // elements); the copy-out applies the output ops, each thread's residual
+  // chunks read (16 bytes, coalesced) before its stores, then rounds once.
+  template <int A_RING, int SMEM, bool FUSED, class RowOff>
   __device__ __forceinline__ void store(T* cs, const T* bias, int m0, int n0,
-                                        int M, int N, bool vec,
-                                        RowOut row_out) {
+                                        int M, int N, bool vec, T* out,
+                                        const Fused<T>& f, RowOff row_off) {
     constexpr int LDC = BN + 8;
     static_assert(BM * LDC <= A_RING, "C tile fits the A ring");
+    if constexpr (FUSED) {
+      this->template store_fused<SMEM>(reinterpret_cast<float*>(cs), bias, m0,
+                                       n0, M, N, vec, out, f, row_off);
+      return;
+    }
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       const int col = wn * WTN + ni * 8 + (lane & 3) * 2;
@@ -559,12 +848,75 @@ struct MmaBf16 {
       const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
       const int m = m0 + row, n = n0 + col;
       if (m >= M || n >= N) continue;
-      T* dst = row_out(m) + n;
+      T* dst = out + row_off(m) + n;
       const T* src = cs + row * LDC + col;
       if (vec) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
         for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
+      }
+    }
+  }
+
+  template <int SMEM, class RowOff>
+  __device__ __forceinline__ void store_fused(float* cf, const T* bias, int m0,
+                                              int n0, int M, int N, bool vec,
+                                              T* out, const Fused<T>& f,
+                                              RowOff row_off) {
+    constexpr int LDF = BN + 4;                  // floats per staged row
+    constexpr int ITER = BM * BN / 8 / kThreads;  // 8-column chunks per thread
+    static_assert(BM * LDF * sizeof(float) <= SMEM * sizeof(T) &&
+                      ITER * kThreads * 8 == BM * BN,
+                  "f32 C tile fits shared memory");
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int col = wn * WTN + ni * 8 + (lane & 3) * 2;
+      const int n = n0 + col;
+      float b0 = 0.0f, b1 = 0.0f;
+      if (bias != nullptr) {
+        if (n < N) b0 = __bfloat162float(bias[n]);
+        if (n + 1 < N) b1 = __bfloat162float(bias[n + 1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int row = wm * WTM + mi * 16 + (lane >> 2);
+        *reinterpret_cast<float2*>(cf + row * LDF + col) =
+            make_float2(acc[mi][ni][0] + b0, acc[mi][ni][1] + b1);
+        *reinterpret_cast<float2*>(cf + (row + 8) * LDF + col) =
+            make_float2(acc[mi][ni][2] + b0, acc[mi][ni][3] + b1);
+      }
+    }
+    __syncthreads();
+    float r[ITER][8];
+#pragma unroll
+    for (int it = 0; it < ITER; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
+      const int m = m0 + row, n = n0 + col;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) r[it][e] = 0.0f;
+      if (f.res == nullptr || m >= M || n >= N) continue;
+      const T* rp = f.res + row_off(m) + n;
+      if (vec) {
+        ld_res_chunk(r[it], rp);
+      } else {
+        for (int e = 0; e < 8 && n + e < N; ++e) r[it][e] = to_f32<T>(rp[e]);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < ITER; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int row = idx / (BN / 8), col = (idx % (BN / 8)) * 8;
+      const int m = m0 + row, n = n0 + col;
+      if (m >= M || n >= N) continue;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = f.out(cf[row * LDF + col + e], r[it][e]);
+      T* dst = out + row_off(m) + n;
+      if (vec) {
+        store_floats<8>(dst, v);
+      } else {
+        for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = __float2bfloat16_rn(v[e]);
       }
     }
   }
@@ -624,20 +976,59 @@ struct FfmaF32 {
   }
 
   // Straight from registers, in pieces of up to 4 floats: the GX threads
-  // of a grid row write GX·TN consecutive floats of each output row.  With
-  // vec, N is a multiple of 4, so a piece is wholly inside N or outside.
-  template <int A_RING, class RowOut>
+  // of a grid row write GX·TN consecutive floats of each output row at
+  // out + row_off(m); FUSED: each through the output ops first (the
+  // residual read in the same pieces).  With vec, N is a multiple of 4, so
+  // a piece is wholly inside N or outside.
+  template <int A_RING, int SMEM, bool FUSED, class RowOff>
   __device__ __forceinline__ void store(T* /*smem*/, const T* /*bias*/,
                                         int m0, int n0, int M, int N,
-                                        bool vec, RowOut row_out) {
+                                        bool vec, T* out, const Fused<T>& f,
+                                        RowOff row_off) {
     constexpr int P = TN < 4 ? TN : 4;
     const int n = n0 + tx * TN;
     if (n >= N) return;
+    if constexpr (FUSED) {
+      // The output ops, the micro-tile's residual loaded first: a load
+      // after a store to `out` would wait for it.
+      if (f.res != nullptr) {
+        float r[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int m = m0 + ty * TM + i;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) r[i][j] = 0.0f;
+          if (m >= M) continue;
+          const float* rp = f.res + row_off(m) + n;
+          if (vec) {
+#pragma unroll
+            for (int q = 0; q < TN; q += P)
+              if (n + q < N) {
+                float t[P];
+                ldg_vec<P>(t, rp + q);
+#pragma unroll
+                for (int e = 0; e < P; ++e) r[i][q + e] = t[e];
+              }
+          } else {
+            for (int j = 0; j < TN && n + j < N; ++j) r[i][j] = __ldg(rp + j);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = f.out(acc[i][j], r[i][j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = f.out(acc[i][j], 0.0f);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int m = m0 + ty * TM + i;
       if (m >= M) return;
-      T* dst = row_out(m) + n;
+      T* dst = out + row_off(m) + n;
       if (vec) {
 #pragma unroll
         for (int q = 0; q < TN; q += P) {
@@ -656,7 +1047,14 @@ struct FfmaF32 {
 
 // The implicit GEMM of one (BM × BN) output tile under math policy P;
 // blockIdx.z is the group (conv1d) or the output phase (transpose conv).
-template <class P, bool TCONV>
+// FUSED: A's row u is state row u (u < T_s) or x row u − T_s, both ld
+// wide from channel c_off, x's through the load LEAKY_RELU (scalar fills
+// only: cp.async cannot transform, so the launcher turns vec off for it);
+// the stores apply the output ops; a transpose conv keeps output rows
+// crop0 + u, u < T_out, so its phase z owns the kept rows u = j·s + z
+// (the result's rows t = crop0 + u, of tap phase (crop0 + z) mod s); all
+// threads share the side store first.
+template <class P, bool TCONV, bool FUSED>
 __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   using T = typename P::T;
   constexpr int BM = P::BM, BN = P::BN, BK = P::BK, NT = P::kThreads;
@@ -672,11 +1070,24 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   T* const As = smem;
   T* const Bs = smem + kStages * A_STAGE;
 
+  if constexpr (FUSED) {
+    if (a.f.side != nullptr) {  // all streams' rows, by all threads
+      const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                        blockIdx.x;
+      side_store<T, false>(a.f, a.x, a.T_in - a.f.T_s, 0,
+                           a.B * a.f.side_rows, block * NT + threadIdx.x,
+                           gridDim.x * gridDim.y * gridDim.z * NT);
+    }
+  }
   const int z = blockIdx.z, s = a.stride, N = a.N;
+  // Transpose conv: tap phase p of the block's rows, and j0, the result
+  // row t = j·s + p of its first kept row, over s.
+  const int p = FUSED && TCONV ? (a.f.crop0 + z) % s : z;
+  const int j0 = FUSED && TCONV ? (a.f.crop0 + z) / s : 0;
   int M, R, J = 0;
   if (TCONV) {
-    J = a.T_out > z ? (a.T_out - z + s - 1) / s : 0;  // rows t = j·s + z
-    const int q = a.K > z ? (a.K - z + s - 1) / s : 0;  // taps k = z + a·s
+    J = a.T_out > z ? (a.T_out - z + s - 1) / s : 0;  // rows u = j·s + z
+    const int q = a.K > p ? (a.K - p + s - 1) / s : 0;  // taps k = p + a·s
     M = a.B * J;
     R = q * a.I_f;
   } else {
@@ -688,8 +1099,11 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   const int tid = threadIdx.x;
 
   // This thread's A rows (fixed over the reduction) and its CH columns.
+  // FUSED: a_j is the input row u0 of tap 0 (u = u0 ± k), a_base and
+  // a_sbase the offsets of row u0's first column read in x and in the
+  // state (as if u0 lay in each).
   const int a_col = (tid % ROW_CH) * CH, a_row = tid / ROW_CH;
-  long long a_base[A_CHUNKS];
+  long long a_base[A_CHUNKS], a_sbase[FUSED ? A_CHUNKS : 1];
   int a_j[A_CHUNKS];  // transpose conv: the row's j; -1 marks no row
 #pragma unroll
   for (int c = 0; c < A_CHUNKS; ++c) {
@@ -697,22 +1111,48 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
     a_base[c] = 0;
     a_j[c] = -1;
     if (row >= BM || m >= M) continue;
+    int b, u0;
     if (TCONV) {
-      const int b = m / J, j = m - b * J;
-      a_base[c] = (static_cast<long long>(b) * a.T_in + j) * a.I_f;
-      a_j[c] = j;
+      b = m / J;
+      const int j = m - b * J;
+      u0 = j0 + j;
+      if (!FUSED) {
+        a_base[c] = (static_cast<long long>(b) * a.T_in + j) * a.I_f;
+        a_j[c] = j;
+      }
     } else {
-      const int b = m / a.T_out, t = m - b * a.T_out;
-      a_base[c] = (static_cast<long long>(b) * a.T_in +
-                   static_cast<long long>(t) * s) * a.C_in +
-                  static_cast<long long>(z) * a.I_f;
-      a_j[c] = 0;
+      b = m / a.T_out;
+      const int t = m - b * a.T_out;
+      u0 = t * s;
+      if (!FUSED) {
+        a_base[c] = (static_cast<long long>(b) * a.T_in +
+                     static_cast<long long>(t) * s) * a.C_in +
+                    static_cast<long long>(z) * a.I_f;
+        a_j[c] = 0;
+      }
+    }
+    if constexpr (FUSED) {
+      const int col0 = a.f.c_off + (TCONV ? 0 : z * a.I_f);
+      a_j[c] = u0;
+      a_base[c] = (static_cast<long long>(b) * (a.T_in - a.f.T_s) + u0 -
+                   a.f.T_s) * a.f.ld + col0;
+      a_sbase[c] = (static_cast<long long>(b) * a.f.T_s + u0) * a.f.ld + col0;
     }
   }
-  // Address of A[row of chunk c, r], or nullptr where it is zero.
-  auto a_src = [&](int c, int r) -> const T* {
+  // Address of A[row of chunk c, r], or nullptr where it is zero; x_row:
+  // whether it lies in x (not in the state).
+  auto a_src = [&](int c, int r, bool& x_row) -> const T* {
+    x_row = true;
     if (a_j[c] < 0 || r >= R) return nullptr;
     const int k = r / a.I_f, i = r - k * a.I_f;
+    if constexpr (FUSED) {
+      const int dk = TCONV ? -k : k;  // input rows past row u0
+      const int u = a_j[c] + dk;
+      if (u < 0 || u >= a.T_in) return nullptr;
+      x_row = u >= a.f.T_s;
+      const long long off = static_cast<long long>(dk) * a.f.ld + i;
+      return x_row ? a.x + (a_base[c] + off) : a.f.state + (a_sbase[c] + off);
+    }
     if (TCONV) {
       const int t_in = a_j[c] - k;
       if (t_in < 0 || t_in >= a.T_in) return nullptr;
@@ -725,7 +1165,7 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
     if (r >= R || n >= N) return nullptr;
     if (TCONV) {
       const int tap = r / a.I_f, i = r - tap * a.I_f;
-      return a.w + (static_cast<long long>(z + tap * s) * a.I_f + i) * a.O + n;
+      return a.w + (static_cast<long long>(p + tap * s) * a.I_f + i) * a.O + n;
     }
     return a.w + static_cast<long long>(r) * a.O +
            static_cast<long long>(z) * N + n;
@@ -735,18 +1175,25 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
     const int r0 = kt * BK;
     T* const as = As + stage * A_STAGE;
     T* const bs = Bs + stage * B_STAGE;
+    bool x_row;
 #pragma unroll
     for (int c = 0; c < A_CHUNKS; ++c) {
       const int row = a_row + c * A_ROWS;
       if (row >= BM) break;
       T* dst = as + row * LDA + a_col;
       if (a.vec) {
-        const T* src = a_src(c, r0 + a_col);
+        const T* src = a_src(c, r0 + a_col, x_row);
         cp_async16(dst, src != nullptr ? src : a.x, src != nullptr);
       } else {
         for (int e = 0; e < CH; ++e) {
-          const T* src = a_src(c, r0 + a_col + e);
-          dst[e] = src != nullptr ? *src : zero;
+          const T* src = a_src(c, r0 + a_col + e, x_row);
+          if constexpr (FUSED) {
+            dst[e] = src != nullptr
+                         ? from_f32<T>(a.f.in(to_f32<T>(*src), x_row))
+                         : zero;
+          } else {
+            dst[e] = src != nullptr ? *src : zero;
+          }
         }
       }
     }
@@ -787,43 +1234,44 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   cp_async_wait<0>();
   __syncthreads();
 
-  // Output row of GEMM row m, at the group's first column.
-  auto row_out = [&](int m) -> T* {
+  // Offset of GEMM row m's output row in out, at the group's first column.
+  auto row_off = [&](int m) -> long long {
     if (TCONV) {
       const int b = m / J, j = m - b * J;
-      return a.out + (static_cast<long long>(b) * a.T_out + j * s + z) * a.O;
+      return (static_cast<long long>(b) * a.T_out + j * s + z) * a.O;
     }
-    return a.out + static_cast<long long>(m) * a.O + bias_off;
+    return static_cast<long long>(m) * a.O + bias_off;
   };
-  math.template store<kStages * A_STAGE>(smem, bias, m0, n0, M, N, a.vec,
-                                         row_out);
+  math.template store<kStages * A_STAGE, kStages * (A_STAGE + B_STAGE),
+                      FUSED>(smem, bias, m0, n0, M, N, a.vec, a.out, a.f,
+                             row_off);
 }
 
 // f32: at least 3 blocks per SM (≤ 85 registers at 256 threads), so that
 // ptxas schedules the FFMA loop for that occupancy; on the card this ran
-// faster than without the hint.
-template <int BM, int BN, int TM, int TN>
+// faster than without the hint.  FUSED: with GemmArgs::f's operands.
+template <int BM, int BN, int TM, int TN, bool FUSED>
 __global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
     conv1d_fwd(const GemmArgs<float> a) {
-  gemm_body<FfmaF32<BM, BN, TM, TN>, false>(a);
+  gemm_body<FfmaF32<BM, BN, TM, TN>, false, FUSED>(a);
 }
 
-template <int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN, bool FUSED>
 __global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
     transpose_conv1d_fwd(const GemmArgs<float> a) {
-  gemm_body<FfmaF32<BM, BN, TM, TN>, true>(a);
+  gemm_body<FfmaF32<BM, BN, TM, TN>, true, FUSED>(a);
 }
 
-template <int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN, bool FUSED>
 __global__ void __launch_bounds__(kMmaThreads)
     conv1d_fwd_bf16(const GemmArgs<bf16> a) {
-  gemm_body<MmaBf16<BM, BN, WM, WN>, false>(a);
+  gemm_body<MmaBf16<BM, BN, WM, WN>, false, FUSED>(a);
 }
 
-template <int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN, bool FUSED>
 __global__ void __launch_bounds__(kMmaThreads)
     transpose_conv1d_fwd_bf16(const GemmArgs<bf16> a) {
-  gemm_body<MmaBf16<BM, BN, WM, WN>, true>(a);
+  gemm_body<MmaBf16<BM, BN, WM, WN>, true, FUSED>(a);
 }
 
 // The instantiated tiles, (BM, BN), in conv_stack.py:GEMM_TILES's order,
@@ -833,28 +1281,29 @@ constexpr int kTileBN[] = {64, 64, 32, 32, 16};
 constexpr int kF32TM[] = {8, 4, 4, 4, 4};
 constexpr int kF32TN[] = {4, 4, 2, 2, 1};
 
-template <int TILE, bool TCONV>
+template <int TILE, bool TCONV, bool FUSED>
 int launch_gemm(const GemmArgs<float>& a, dim3 grid, cudaStream_t stream) {
   constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
   constexpr int TM = kF32TM[TILE], TN = kF32TN[TILE];
   constexpr int nt = FfmaF32<BM, BN, TM, TN>::kThreads;
   if (TCONV) {
-    transpose_conv1d_fwd<BM, BN, TM, TN><<<grid, nt, 0, stream>>>(a);
+    transpose_conv1d_fwd<BM, BN, TM, TN, FUSED><<<grid, nt, 0, stream>>>(a);
   } else {
-    conv1d_fwd<BM, BN, TM, TN><<<grid, nt, 0, stream>>>(a);
+    conv1d_fwd<BM, BN, TM, TN, FUSED><<<grid, nt, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TILE, bool TCONV>
+template <int TILE, bool TCONV, bool FUSED>
 int launch_gemm(const GemmArgs<bf16>& a, dim3 grid, cudaStream_t stream) {
   constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
   constexpr int WM = BN == 16 ? 4 : 2, WN = BN == 16 ? 1 : 2;
   if (TCONV) {
-    transpose_conv1d_fwd_bf16<BM, BN, WM, WN>
+    transpose_conv1d_fwd_bf16<BM, BN, WM, WN, FUSED>
         <<<grid, kMmaThreads, 0, stream>>>(a);
   } else {
-    conv1d_fwd_bf16<BM, BN, WM, WN><<<grid, kMmaThreads, 0, stream>>>(a);
+    conv1d_fwd_bf16<BM, BN, WM, WN, FUSED>
+        <<<grid, kMmaThreads, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -874,7 +1323,7 @@ int gemm_tile(int M, int N, int z) {
   return cand[n_cand - 1];
 }
 
-template <bool TCONV, typename T>
+template <bool TCONV, bool FUSED, typename T>
 int launch_gemm_tiled(const GemmArgs<T>& a, int M, int z, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -882,39 +1331,62 @@ int launch_gemm_tiled(const GemmArgs<T>& a, int M, int z, void* stream) {
   const dim3 grid((M + kTileBM[tile] - 1) / kTileBM[tile],
                   (a.N + kTileBN[tile] - 1) / kTileBN[tile], z);
   switch (tile) {
-    case 0: return launch_gemm<0, TCONV>(a, grid, st);
-    case 1: return launch_gemm<1, TCONV>(a, grid, st);
-    case 2: return launch_gemm<2, TCONV>(a, grid, st);
-    case 3: return launch_gemm<3, TCONV>(a, grid, st);
-    default: return launch_gemm<4, TCONV>(a, grid, st);
+    case 0: return launch_gemm<0, TCONV, FUSED>(a, grid, st);
+    case 1: return launch_gemm<1, TCONV, FUSED>(a, grid, st);
+    case 2: return launch_gemm<2, TCONV, FUSED>(a, grid, st);
+    case 3: return launch_gemm<3, TCONV, FUSED>(a, grid, st);
+    default: return launch_gemm<4, TCONV, FUSED>(a, grid, st);
   }
+}
+
+// Both GEMM launchers: the fused operands into `a` (the 16-byte path also
+// needs ld and c_off whole chunks, state and residual aligned and no load
+// LEAKY_RELU), then the launch of the plain or the FUSED kernels.
+template <bool TCONV, typename T>
+int launch_gemm_fused(GemmArgs<T> a, int M, int z, const FusedOps* fused,
+                      void* stream) {
+  if (fused == nullptr) return launch_gemm_tiled<TCONV, false>(a, M, z, stream);
+  constexpr int ch = 16 / sizeof(T);
+  if (fused->ld < fused->c_off + a.C_in ||
+      (fused->state != nullptr && fused->T_s > a.T_in) ||
+      (!TCONV && fused->crop0 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fused->side != nullptr &&
+      static_cast<long long>(a.B) * fused->side_rows * fused->ld > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.f = fused_from<T>(*fused, a.x);
+  a.vec = a.vec && fused->ld % ch == 0 && fused->c_off % ch == 0 &&
+          aligned16_or_null(fused->state) && aligned16_or_null(fused->res) &&
+          !fused->leaky_in;
+  return launch_gemm_tiled<TCONV, true>(a, M, z, stream);
 }
 
 template <typename T>
 int launch_conv1d(const T* x, const T* w, const T* bias, T* out, int B,
                   int T_in, int C_in, int T_out, int O, int K, int I_f,
-                  int stride, int groups, void* stream) {
+                  int stride, int groups, const FusedOps* fused,
+                  void* stream) {
   constexpr int ch = 16 / sizeof(T);
   const int N = O / groups;
   const int vec = I_f % ch == 0 && N % ch == 0 && aligned16(x) &&
                   aligned16(w) && aligned16(out);
   const GemmArgs<T> a{x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f,
-                      stride, N, vec};
-  return launch_gemm_tiled<false>(a, B * T_out, groups, stream);
+                      stride, N, vec, {}};
+  return launch_gemm_fused<false>(a, B * T_out, groups, fused, stream);
 }
 
 template <typename T>
 int launch_transpose_conv1d(const T* x, const T* w, const T* bias, T* out,
                             int B, int T_in, int I, int T_out, int O, int K,
-                            int stride, void* stream) {
+                            int stride, const FusedOps* fused, void* stream) {
   constexpr int ch = 16 / sizeof(T);
   const int vec = I % ch == 0 && O % ch == 0 && aligned16(x) &&
                   aligned16(w) && aligned16(out);
   const GemmArgs<T> a{x, w, bias, out, B, T_in, I, T_out, O, K, I, stride, O,
-                      vec};
+                      vec, {}};
   // Phase 0 has the most output rows: ceil(T_out / stride) per stream.
-  return launch_gemm_tiled<true>(a, B * ((T_out + stride - 1) / stride),
-                                 stride, stream);
+  return launch_gemm_fused<true>(a, B * ((T_out + stride - 1) / stride),
+                                 stride, fused, stream);
 }
 
 }  // namespace
@@ -925,31 +1397,36 @@ extern "C" {
 int lyra_conv_gemm_tile(int M, int N, int z) { return gemm_tile(M, N, z); }
 
 // The plan the depthwise launcher takes for these operands: writes V, J,
-// the block and the grid to plan[0..6].
+// the block and the grid to plan[0..6].  (A fused launch also needs its
+// state and residual aligned for V > 1.)
 void lyra_depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
                          int dilation, const void* x, const void* w,
                          const void* bias, const void* out, int* plan) {
-  const DwPlan p = depthwise_plan(elem_bytes, B, T_out, C, K, dilation, x, w,
-                                  bias, out);
+  const DwPlan p = depthwise_plan(
+      elem_bytes, B, T_out, C, K, dilation,
+      aligned16(x) && aligned16(w) && aligned16(out) &&
+          aligned16_or_null(bias));
   const int v[7] = {p.elems,    p.runs,     p.block[0], p.block[1],
                     p.grid[0],  p.grid[1],  p.grid[2]};
   for (int i = 0; i < 7; ++i) plan[i] = v[i];
 }
 
+// `fused`: the launch's fused operands (struct FusedOps), or null.
 #define LYRA_GEMM_LAUNCHERS(SUFFIX, T)                                         \
   int lyra_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, T* out,  \
                               int B, int T_in, int C_in, int T_out, int O,    \
                               int K, int I_f, int stride, int groups,         \
-                              void* stream) {                                 \
+                              const FusedOps* fused, void* stream) {          \
     return launch_conv1d<T>(x, w, bias, out, B, T_in, C_in, T_out, O, K, I_f, \
-                            stride, groups, stream);                          \
+                            stride, groups, fused, stream);                   \
   }                                                                           \
   int lyra_transpose_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, \
                                         T* out, int B, int T_in, int I,       \
                                         int T_out, int O, int K, int stride,  \
+                                        const FusedOps* fused,                \
                                         void* stream) {                       \
     return launch_transpose_conv1d<T>(x, w, bias, out, B, T_in, I, T_out, O,  \
-                                      K, stride, stream);                     \
+                                      K, stride, fused, stream);              \
   }
 
 LYRA_GEMM_LAUNCHERS(, float)
@@ -961,9 +1438,9 @@ LYRA_GEMM_LAUNCHERS(_bf16, __nv_bfloat16)
   int lyra_depthwise_conv1d_fwd##SUFFIX(const T* x, const T* w, const T* bias, \
                                         T* out, int B, int T_in, int C,        \
                                         int T_out, int K, int dilation,        \
-                                        void* stream) {                        \
+                                        const FusedOps* fused, void* stream) { \
     return launch_depthwise<T>(x, w, bias, out, B, T_in, C, T_out, K,          \
-                               dilation, stream);                              \
+                               dilation, fused, stream);                       \
   }
 
 LYRA_DEPTHWISE_LAUNCHER(, float)

@@ -3,7 +3,7 @@
 conv1d_fwd / transpose_conv1d_fwd (f32, FFMA micro-tiles), their _bf16
 versions (tensor cores) and depthwise_conv1d_fwd(_bf16) in
 ops/csrc/conv_stack.cu run only on the card; what they compute rests on
-three maps that numpy can check here:
+maps that numpy can check here:
 
   (a) the transpose conv as `stride` per-phase GEMMs: output phase p owns
       the rows t = j·s + p < t_out, its q_p = ceil((K − p)/s) taps are
@@ -11,6 +11,13 @@ three maps that numpy can check here:
       [0, T_in)).  Written out below, it equals the port's plain version
       and the JAX package's TRANSPOSE_CONV lowering
       (lyra_tpu/tflite/executor.py `_transpose_conv`) on the same inputs;
+  (a') the fused launches' maps (ops/fused_stack.py plans them): A's row u
+      is state row u (u < T_s) or x row u − T_s, read from channel c_off
+      (a SPLIT), and a cropped transpose conv's phase z owns the kept rows
+      u = j·s + z, i.e. the result's rows crop0 + u, of tap phase
+      (crop0 + z) mod s.  Written out for every GEMM launch of both
+      fixtures, they equal the plain composition (torch.cat, the plain
+      conv, the slice);
   (b) the launchers' tile plan (conv_stack.conv1d_plan /
       transpose_conv1d_plan; tests/test_torch_cuda.py holds the launchers
       to it on the card), in both element types: its blocks cover every
@@ -103,25 +110,103 @@ def test_per_phase_transpose_conv_matches_plain_and_jax(stride, k):
 
 
 @functools.lru_cache(maxsize=None)
+def _launches(fixture):
+    return [launch for model in MODELS for launch in FusedStack(
+        os.path.join(FIXTURES, fixture, f"{model}.tflite"),
+        device="cpu").plan]
+
+
+@functools.lru_cache(maxsize=None)
 def _gemm_calls(fixture):
-    """(kind, x [T_in, C_in], w shape, extra) of every conv1d and transpose
-    conv call of one hop of both graphs of `fixture`."""
-    calls = []
-    for model in MODELS:
-        fused = FusedStack(os.path.join(FIXTURES, fixture, f"{model}.tflite"),
-                           device="cpu")
-        for launch in fused.conv_launches():
-            kind = {conv_stack.conv1d_plain: "conv1d",
-                    conv_stack.transpose_conv1d_plain: "tconv"}.get(launch.plain)
-            if kind:
-                calls.append((kind, launch.in_shape, tuple(launch.w.shape),
-                              launch.extra))
-    return calls
+    """(kind, x [T_in, C_in], w shape, extra, crop) of every conv1d and
+    transpose conv launch of one hop of both graphs of `fixture` (T_in with
+    the state rows, C_in the conv's channels)."""
+    return [(launch.kind, launch.in_shape, tuple(launch.w.shape),
+             launch.extra, launch.crop)
+            for launch in _launches(fixture)
+            if launch.kind in ("conv1d", "tconv")]
+
+
+def fused_gemm(launch, x, state):
+    """The launch's conv (bias, no output ops) as its kernel maps it, in
+    float64: A's row u from state (u < T_s) or x, from channel c_off; a
+    transpose conv per phase z of the kept rows u = j·s + z, the result's
+    row crop0 + u = (j0 + j)·s + p with p = (crop0 + z) mod s."""
+    b = x.shape[0]
+    t_s = 0 if state is None else state.shape[1]
+    c_off = launch.split[0] if launch.split else 0
+    w = launch.w.double().numpy()
+    bias = launch.bias.double().numpy()
+    k, i_f, o = w.shape
+    t_in = launch.in_shape[0]
+
+    def rows(u):  # [B, I] of input row u (zeros outside), from c_off
+        if not 0 <= u < t_in:
+            return np.zeros((b, x.shape[2]))
+        return state[:, u] if u < t_s else x[:, u - t_s]
+
+    if launch.kind == "conv1d":
+        (stride,) = launch.extra
+        groups = launch.in_shape[1] // i_f
+        n = o // groups
+        t_out = (t_in - k) // stride + 1
+        out = np.zeros((b, t_out, o))
+        for t in range(t_out):
+            for g in range(groups):
+                a_row = np.concatenate(
+                    [rows(t * stride + kk)[:, c_off + g * i_f:
+                                           c_off + (g + 1) * i_f]
+                     for kk in range(k)], axis=1)
+                out[:, t, g * n:(g + 1) * n] = (
+                    a_row @ w[:, :, g * n:(g + 1) * n].reshape(k * i_f, n)
+                    + bias[g * n:(g + 1) * n])
+        return out
+    stride, t_out = launch.extra
+    crop0, end = launch.crop or (0, t_out)
+    kept = end - crop0
+    out = np.full((b, kept, o), np.nan)
+    for z in range(stride):
+        p, j0 = (crop0 + z) % stride, (crop0 + z) // stride
+        taps = -(-(k - p) // stride) if k > p else 0
+        for j in range(-(-(kept - z) // stride) if kept > z else 0):
+            a_row = [rows(j0 + j - a)[:, c_off:c_off + i_f]
+                     for a in range(taps)]
+            acc = np.zeros((b, o)) + bias
+            for a in range(taps):
+                acc += a_row[a] @ w[p + a * stride]
+            out[:, j * stride + z] = acc
+    return out
+
+
+@pytest.mark.parametrize("fixture", ["small", "full"])
+def test_fused_gemm_maps_match_plain(fixture):
+    """(a'): every GEMM launch's two-pointer rows, channel offset and
+    cropped phases, walked in numpy, equal the plain composition of its
+    CONCATENATION, SPLIT, conv and STRIDED_SLICE on the same inputs."""
+    rng = np.random.default_rng(5)
+    for launch in _launches(fixture):
+        if launch.kind == "depthwise":
+            continue
+        t_x, c_x = launch.x_shape
+        x = rng.normal(size=(2, t_x, c_x))
+        state = None
+        if launch.state is not None:
+            t_s = launch.in_shape[0] - t_x
+            state = rng.normal(size=(2, t_s, c_x))
+        got = fused_gemm(launch, x, state)
+        ref = conv_stack.fused_plain(
+            conv_stack.PLAIN[launch.kind], torch.from_numpy(x).float(),
+            launch.w, launch.bias, launch.extra, conv_stack.Fusion(
+                state=None if state is None else torch.from_numpy(
+                    state).float(), split=launch.split, crop=launch.crop))
+        assert got.shape == ref.shape, launch.op
+        np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=REL_TOL *
+                                   np.abs(got).max(), err_msg=str(launch.op))
 
 
 def test_full_fixture_shape_lists_match_the_fixture():
     conv1d, tconv = [], []
-    for kind, (t_in, c_in), (k, i, o), extra in _gemm_calls("full"):
+    for kind, (t_in, c_in), (k, i, o), extra, _ in _gemm_calls("full"):
         if kind == "conv1d":
             conv1d.append((t_in, c_in, k, i, o, *extra))
         else:
@@ -131,10 +216,11 @@ def test_full_fixture_shape_lists_match_the_fixture():
 
 
 @functools.lru_cache(maxsize=None)
-def _covered_once(kind, batch, t_in, w_shape, extra, dims, block, grid):
+def _covered_once(kind, batch, t_in, w_shape, extra, crop, dims, block, grid):
     """Whether a plan's blocks write each output element exactly once,
     walking the grid as the kernel's epilogue does (cached: both element
-    types share the tile rule)."""
+    types share the tile rule); a cropped transpose conv writes its kept
+    rows u = j·stride + z."""
     k, i_f, o = w_shape
     bm, bn = block
     _, n_cols, layers = dims
@@ -142,6 +228,8 @@ def _covered_once(kind, batch, t_in, w_shape, extra, dims, block, grid):
         t_out = (t_in - k) // extra[0] + 1
     else:
         stride, t_out = extra
+        if crop is not None:
+            t_out = crop[1] - crop[0]
     hits = np.zeros((batch, t_out, o), np.int32)
     for z in range(layers):
         if kind == "conv1d":  # z = group; rows (b, t); columns z·N + n
@@ -170,7 +258,7 @@ def _covered_once(kind, batch, t_in, w_shape, extra, dims, block, grid):
 @pytest.mark.parametrize("fixture", ["small", "full"])
 def test_gemm_plan_covers_every_output_once(fixture, batch, dtype):
     chunk = 16 // DTYPES[dtype].itemsize  # 8 bf16 or 4 floats
-    for kind, (t_in, c_in), w_shape, extra in _gemm_calls(fixture):
+    for kind, (t_in, c_in), w_shape, extra, crop in _gemm_calls(fixture):
         k, i_f, o = w_shape
         x_shape = (batch, t_in, c_in)
         if kind == "conv1d":
@@ -179,16 +267,17 @@ def test_gemm_plan_covers_every_output_once(fixture, batch, dtype):
             ragged = i_f % chunk or (o // (c_in // i_f)) % chunk
         else:
             plan = conv_stack.transpose_conv1d_plan(x_shape, w_shape, *extra,
-                                                    dtype=DTYPES[dtype])
+                                                    dtype=DTYPES[dtype],
+                                                    crop=crop)
             ragged = i_f % chunk or o % chunk
         assert plan.vec == (not ragged), (kind, t_in, c_in, w_shape)
         bm, bn = plan.block
         assert plan.block == conv_stack.GEMM_TILES[plan.tile]
         assert plan.grid[0] * bm >= plan.dims[0] > (plan.grid[0] - 1) * bm
         assert plan.grid[1] * bn >= plan.dims[1] > (plan.grid[1] - 1) * bn
-        assert _covered_once(kind, batch, t_in, w_shape, extra, plan.dims,
-                             plan.block, plan.grid), (kind, t_in, c_in,
-                                                      w_shape, extra, plan)
+        assert _covered_once(kind, batch, t_in, w_shape, extra, crop,
+                             plan.dims, plan.block, plan.grid), (
+            kind, t_in, c_in, w_shape, extra, crop, plan)
 
 
 def test_gemm_tile_rule():
@@ -232,15 +321,8 @@ def test_f32_vector_path_shapes():
 def _depthwise_calls(fixture):
     """(T_in, C, dilation, K) of every depthwise call of one hop of both
     graphs of `fixture`, in graph order."""
-    calls = []
-    for model in MODELS:
-        fused = FusedStack(os.path.join(FIXTURES, fixture, f"{model}.tflite"),
-                           device="cpu")
-        for launch in fused.conv_launches():
-            if launch.plain is conv_stack.depthwise_conv1d_plain:
-                calls.append((*launch.in_shape, *launch.extra,
-                              launch.w.shape[0]))
-    return calls
+    return [(*launch.in_shape, *launch.extra, launch.w.shape[0])
+            for launch in _launches(fixture) if launch.kind == "depthwise"]
 
 
 def test_full_fixture_depthwise_list_matches_the_fixture():

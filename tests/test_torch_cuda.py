@@ -35,7 +35,7 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "golden",
 BF16_BAR = 2.0 ** -7  # two bf16 roundings: the kernel's and cuDNN's
 
 # Every distinct conv1d and transpose-conv call of one hop of the full-width
-# fixture (FusedStack(...).conv_launches() on tests/golden/synthetic_lyra/
+# fixture (FusedStack(...).plan on tests/golden/synthetic_lyra/
 # full; tests/test_torch_conv_gemm.py checks these lists against it).
 # conv1d: (T_in, C_in, K, I_f, O, stride), SoundStream then LyraGAN.
 FULL_CONV1D = [
@@ -235,6 +235,69 @@ def test_fused_stack_matches_executor_on_card(cuda, name, shape):
         o, gs = graph(gs, input_audio=x)
         r = o["output_0"]
         assert (y - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+FULL = os.path.join(os.path.dirname(SMALL), "full")
+
+
+def _fused_operands(launch, batch, dev, dtype, rng):
+    """Random x, state and residual of one fused launch's shapes."""
+    t_x, c_x = launch.x_shape
+    x = _t(rng.normal(size=(batch, t_x, c_x)), dev).to(dtype)
+    state = res = None
+    if launch.state is not None:
+        t_s = launch.in_shape[0] - t_x
+        state = _t(rng.normal(size=(batch, t_s, c_x)), dev).to(dtype)
+    if launch.res is not None:
+        res = _t(rng.normal(size=(batch,) + launch.out_shape), dev).to(dtype)
+    return x, state, res
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fixture", ["small", "full"])
+@pytest.mark.parametrize("name", ["soundstream_encoder", "lyragan"])
+def test_fused_launches_match_plain(cuda, name, fixture, dtype):
+    """Every fused launch of a hop (each pattern: residual unit, strided
+    conv with state, SPLIT + transpose convs with ADD/SUB and crop, single
+    cropped transpose conv, LEAKY on load) vs its plain version: f32
+    within 1e-5, bf16 within 2^-7 of max|plain|; the new state rows (a
+    copy) bit for bit; one count per launch."""
+    path = os.path.join(FULL if fixture == "full" else SMALL, f"{name}.tflite")
+    fused = FusedStack(path, mode="float" if dtype == torch.float32
+                       else "bf16", device=cuda)
+    rng = np.random.default_rng(7)
+    for batch in (3, 64):
+        for launch in fused.plan:
+            x, state, res = _fused_operands(launch, batch, cuda, dtype, rng)
+            n = launch.kernel.launches
+            got, ref = launch(x, state, res), launch.plain(x, state, res)
+            assert launch.kernel.launches == n + 1
+            if launch.side is not None:
+                (got, side), (ref, side_ref) = got, ref
+                assert torch.equal(side, side_ref), launch.op
+            assert got.shape == ref.shape, launch.op
+            bar = 1e-5 if dtype == torch.float32 else BF16_BAR
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= bar * ref.float().abs().max().item(), (launch.op,
+                                                                 err)
+
+
+@pytest.mark.parametrize("name,shape", [("soundstream_encoder", (320,)),
+                                        ("lyragan", (1, 64))])
+def test_fused_stack_f32_is_bitwise_unfused(cuda, name, shape):
+    """In f32 the fused stack gives the bits of the unfused kernel path
+    (the same kernels without fused operands, every other op a torch op),
+    output and state, over 10 frames with state carried."""
+    fused = FusedStack(os.path.join(FULL, f"{name}.tflite"), device=cuda)
+    fs = us = fused.init_state(8)
+    rng = np.random.default_rng(3)
+    for _ in range(10):
+        x = _t(rng.normal(0, 0.1, (8,) + shape), cuda)
+        y, fs = fused(fs, x)
+        u, us = fused.unfused(us, x)
+        assert torch.equal(y, u)
+        for k in us:
+            assert torch.equal(fs[k], us[k]), k
 
 
 def test_engines_tick_on_card(cuda):

@@ -102,7 +102,8 @@ def test_port_matches_jax_over_50_frames(jax_reference, name, backend):
 
 def test_fused_stack_partition_matches_jax():
     """The dataflow partition (prologue / core / epilogue, core state
-    vars) is the JAX kernel's, and every core conv goes to a kernel."""
+    vars) is the JAX kernel's, every core conv is one launch of the plan,
+    in graph order, and every other core op is absorbed or a view."""
     for name in MODELS:
         path = os.path.join(SMALL, f"{name}.tflite")
         j = FusedStackKernel(path, mode="float", interpret=True)
@@ -114,7 +115,81 @@ def test_fused_stack_partition_matches_jax():
         assert {"CONV_2D", "DEPTHWISE_CONV_2D"} <= kinds
         convs = [i for i in t._core if t.sg.ops[i].name in
                  ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")]
-        assert list(t._convs) == convs
+        assert [launch.op for launch in t.plan] == convs
+        assert sorted(t.roles) == sorted(t._core)
+        assert [i for i, r in t.roles.items() if r == "conv"] == convs
+        assert set(t.roles.values()) == {"conv", "absorbed", "view"}
+
+
+# Absorbed elementwise ops per graph: LEAKY_RELU, CONCATENATION, ADD, SUB.
+ABSORBED = {"soundstream_encoder": {"LEAKY_RELU": 22, "CONCATENATION": 13,
+                                    "ADD": 9},
+            "lyragan": {"LEAKY_RELU": 26, "CONCATENATION": 17, "ADD": 10,
+                        "SUB": 1}}
+
+
+@pytest.mark.parametrize("fixture", ["small", "full"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_plan_covers_every_core_op_once(fixture, name):
+    """Each core op has one role: a conv launch, an op absorbed by a launch
+    or a view (RESHAPE, SPLIT, READ_VARIABLE); the graph ops the launches
+    list as absorbed are exactly the absorbed ones, and the elementwise
+    ones among them are 44 in SoundStream and 54 in LyraGAN (the full
+    fixture is only parsed here)."""
+    t = FusedStack(os.path.join(os.path.dirname(SMALL), fixture,
+                                f"{name}.tflite"), device="cpu")
+    names = {i: t.sg.ops[i].name for i in t._core}
+    listed = {i for launch in t.plan for i in launch.absorbed}
+    assert listed == {i for i, r in t.roles.items() if r == "absorbed"}
+    counts = {}
+    for i, r in t.roles.items():
+        if r == "absorbed" and names[i] in ABSORBED[name]:
+            counts[names[i]] = counts.get(names[i], 0) + 1
+    assert counts == ABSORBED[name]
+    assert sum(counts.values()) == {"soundstream_encoder": 44,
+                                    "lyragan": 54}[name]
+    assert {names[i] for i, r in t.roles.items() if r == "view"} <= {
+        "RESHAPE", "SPLIT", "READ_VARIABLE"}
+    assert {names[i] for i, r in t.roles.items() if r == "absorbed"} <= {
+        "LEAKY_RELU", "CONCATENATION", "ADD", "SUB", "STRIDED_SLICE",
+        "ASSIGN_VARIABLE"}
+
+
+def _as_btc(v):
+    """A graph tensor [B, T, 1, C] (or [B, T, C]) as [B, T, C]."""
+    return v.reshape(v.shape[0], v.shape[1], v.shape[-1])
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_fused_launch_plain_is_bitwise_the_executor(name):
+    """Each fused launch's plain version, fed the tensors the op-by-op
+    executor computed, gives the executor's output and new state bit for
+    bit in float32, at the third frame (state carried)."""
+    path = os.path.join(SMALL, f"{name}.tflite")
+    t = FusedStack(path, device="cpu")
+    g = t.graph
+    st = g.init_state(B)
+    for x in _inputs(name, 1)[:3]:
+        env = {t.input_idx: torch.from_numpy(x)}
+        new = dict(st)
+        g.run_ops(range(len(t.sg.ops)), env, new)
+        for launch in t.plan:
+            rows = launch.crop and slice(*launch.crop)
+            res = None
+            if launch.res is not None:
+                res = _as_btc(env[launch.res])
+                if res.shape[1] != launch.out_shape[0]:  # its sibling's rows
+                    res = res[:, rows]
+            state = launch.state and _as_btc(st[launch.state][:, 0])
+            got = launch.plain(_as_btc(env[launch.x]).contiguous(), state, res)
+            if launch.side is not None:
+                got, side = got
+                assert torch.equal(side, _as_btc(new[launch.side[0]][:, 0]))
+            want = _as_btc(env[launch.out])
+            if want.shape[1] != got.shape[1]:
+                want = want[:, rows]
+            assert torch.equal(got, want), launch.op
+        st = new
 
 
 def test_conv_wrappers_run_plain_versions_on_cpu():
