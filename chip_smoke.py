@@ -113,7 +113,37 @@ Phases, one line each; any failed check raises and exits nonzero:
               p50/p95, ingest datagrams, drops by cause, egress sent) and
               the loop's own ticks per second beside the card's name and
               power limit; last, one tick's downlink send (1024
-              datagrams, native egress) timed alone on the host.
+              datagrams, native egress) timed alone on the host;
+ 11. offline  the single-stream codec and the offline tools, each entry
+              point at its default device (the card): SoundStream and
+              LyraGAN on the kernel path vs the plain executor at B=1 and
+              B=3, float and bf16, 20 frames with state carried (phases
+              2-3's bars), rvq_encode in 1000 launches at B=1 vs its plain
+              version (near-ties only); LyraEncoder (6 kbps, DTX off and
+              on) and LyraDecoder (Gilbert loss 0.1 / burst 2, random
+              request sizes) at 16 and 48 kHz over 150 hops vs the same
+              facades on the CPU (packets identical but at RVQ
+              near-ties and DTX decisions at the noise bound, ≤ 0.1 % of
+              hops, with DTX on from the card's pre-hop state; audio
+              within 2 int16 LSB;
+              is_comfort_noise equal after every request); the facade
+              pair's per-hop wall time at 16 kHz (p50/p99 over 150 hops,
+              device µs and kernels per hop from the profiler);
+              encoder_main and decoder_main in process on a 10 s wav per
+              rate (a fixed loss pattern, then Gilbert loss with random
+              requests): `.lyra` size, its packets equal the facade's,
+              wav lengths, real-time factors; batch_transcode over 16
+              wavs (B=7 at 16 kHz, B=9 at 48 kHz, each with a partial
+              hop): every `.lyra` byte for byte the single-stream
+              encoder's, audio within 1 LSB of the single-stream
+              decoder's; launch counts reset before and read after the
+              facades, the CLIs and batch_transcode (every kernel of the
+              float path launched in each; printed as one JSON line of
+              its own); tools/benchmark.run_benchmark in float and bf16
+              at batch 1 and 1024 (200 conditioning vectors),
+              melspec_benchmark, and one captured hop of each model at
+              B=1 in each mode under the profiler (device µs, kernels,
+              the three costliest).
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -166,6 +196,8 @@ SERVE_DELAY = 4  # phase 10: playout delay of the checked decode/bridge runs
 SERVE_CHECK_ENCODE = 8  # phase 10: ticks of the checked encode run
 SERVE_SENDERS = 4  # phase 10: traffic processes
 SERVE_PACED = 500  # phase 10: downlink ticks of each paced run (10 s)
+OFFLINE_HOPS = 150  # phase 11: hops of each facade run
+OFFLINE_CLI_SECONDS = 10  # phase 11: length of each CLI wav
 # The two graphs of the fused stack: input shape per stream, input scale.
 MODELS = (("soundstream_encoder", (320,), 0.1), ("lyragan", (1, 64), 1.0))
 
@@ -383,7 +415,8 @@ def _bitwise_unfused(fused, shape, scale, dev):
 
 
 def _core_kernels(fused, shape, scale, batch, dev):
-    """One eager hop under torch.profiler: every CUDA kernel inside the
+    """One eager hop under torch.profiler (after one profiler warm-up
+    step, which can lose device records): every CUDA kernel inside the
     core's span (CORE_SPAN, the record_function around the plan's
     launches, as the profiler places it on the device's timeline) must be
     a conv-stack kernel, one per launch of the plan."""
@@ -397,11 +430,7 @@ def _core_kernels(fused, shape, scale, batch, dev):
     state = fused.init_state(batch)
     fused(state, x)  # warm-up: cuDNN's first calls
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fused(state, x)
-        torch.cuda.synchronize()
+    prof = _profile_ticks(lambda _: fused(state, x), n=1)
     cuda = torch.autograd.DeviceType.CUDA
     dev_events = [e for e in prof.events()
                   if getattr(e, "device_type", None) == cuda]
@@ -701,6 +730,27 @@ def bf16_bar(plain_dev: float) -> float:
     return max(BF16_REL_TOL, 1.5 * plain_dev)
 
 
+def _rvq_near_ties(phase, got, ref, feats, rvq) -> int:
+    """Rows of RVQ indices `got` that differ from the plain search's `ref`
+    on the same features: each must first differ at a near-tie of the
+    plain scores.  → their count."""
+    import torch
+
+    cb, c2 = rvq.codebooks, rvq.c2
+    rows = (got != ref).any(dim=1)
+    n_diff = int(rows.sum().item())
+    for r in torch.nonzero(rows).flatten().tolist():
+        s = int(torch.nonzero(got[r] != ref[r])[0].item())
+        resid = feats[r].double() - sum(
+            (cb[j, ref[r, j]].double() for j in range(s)),
+            torch.zeros(64, dtype=torch.float64, device=feats.device))
+        scores = c2[s].double() - 2.0 * cb[s].double() @ resid
+        top = torch.sort(scores).values[:2]
+        check(abs((top[1] - top[0]).item()) < 1e-5 * max(abs(top[0].item()), 1.0),
+              f"{phase}: row {r} differs at stage {s} without a near-tie")
+    return n_diff
+
+
 def phase_k2(rvq, batch, dev, stats, gpu):
     import torch
 
@@ -712,19 +762,8 @@ def phase_k2(rvq, batch, dev, stats, gpu):
     cb, c2 = rvq.codebooks, rvq.c2
     got = rvq_kernel.rvq_encode(feats, cb, c2, 46)
     ref = rvq_kernel.rvq_encode_plain(feats, cb, c2, 46)
-    rows = (got != ref).any(dim=1)
-    n_diff = int(rows.sum().item())
+    n_diff = _rvq_near_ties("K2", got, ref, feats, rvq)
     check(n_diff <= b // 1000, f"K2: {n_diff} of {b} rows differ")
-    # A differing row must start at a near-tie of the plain scores.
-    for r in torch.nonzero(rows).flatten().tolist():
-        s = int(torch.nonzero(got[r] != ref[r])[0].item())
-        resid = feats[r].double() - sum(
-            (cb[j, ref[r, j]].double() for j in range(s)),
-            torch.zeros(64, dtype=torch.float64, device=dev))
-        scores = c2[s].double() - 2.0 * cb[s].double() @ resid
-        top = torch.sort(scores).values[:2]
-        check(abs((top[1] - top[0]).item()) < 1e-5 * max(abs(top[0].item()), 1.0),
-              f"K2: row {r} differs at stage {s} without a near-tie")
     recon = (rvq.decode(got) - rvq.decode(ref)).abs().max().item()
     s = stats["rvq_encode"]
     s["max_abs_err"] = recon
@@ -1948,6 +1987,477 @@ def phase_serve_process(path, dev, gpu):
     print(f"serve-process: phase 10 took {time.time() - t_phase:.1f} s")
 
 
+# ---- phase 11: the single-stream codec and the offline tools ---------------
+
+
+def _speech(rate, hops, seed=11):
+    """Phase 11's signal: int16 noise at speech level (gain 3000 or 1000
+    per hop) in 10-hop stretches with 5-hop near-silent gaps (gain 3)
+    between them, so DTX both sends and suppresses."""
+    hop = rate // 50
+    rng = np.random.default_rng(seed)
+    loud = np.where(rng.random(hops) < 0.5, 3000.0, 1000.0)
+    gain = np.where(np.arange(hops) % 15 < 10, loud, 3.0)
+    x = rng.normal(0.0, 1.0, (hops, hop)) * gain[:, None]
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def _zero_launches():
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    for k in conv_stack.KERNELS + rvq_kernel.KERNELS:
+        k.launches = 0
+
+
+def _float_path_launches(where):
+    """The launch counts since `_zero_launches`; every kernel of the float
+    path (the f32 K1 family and rvq_encode) must have launched."""
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    counts = {k.name: k.launches
+              for k in conv_stack.KERNELS + rvq_kernel.KERNELS}
+    for k in conv_stack.KERNELS_F32 + rvq_kernel.KERNELS:
+        check(counts[k.name] > 0, f"offline: {where} never launched {k.name}")
+    return counts
+
+
+def _offline_models(path, dev):
+    """11.1: each conv stack on the kernel path vs the plain executor at
+    B = 1 and 3, float and bf16, 20 frames with state carried (phases 2-3's
+    bars); rvq_encode at B = 1 vs its plain version."""
+    import torch
+
+    from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
+    from lyra_tpu_torch.ops import rvq_kernel
+    from lyra_tpu_torch.ops.fused_stack import FusedStack
+    from lyra_tpu_torch.tflite.executor import load_graph
+
+    rng = np.random.default_rng(12)
+    parts = []
+    for name, shape, scale in MODELS:
+        p = os.path.join(path, f"{name}.tflite")
+        plain32 = load_graph(p, device=dev)
+        for mode in ("float", "bf16"):
+            fused = FusedStack(p, mode=mode, device=dev)
+            plain = (plain32 if mode == "float"
+                     else load_graph(p, mode="bf16", device=dev))
+            for b in (1, 3):
+                fs, ps, s32 = (fused.init_state(b), plain.init_state(b),
+                               plain32.init_state(b))
+                err = plain_dev = 0.0
+                for _ in range(20):
+                    x = torch.tensor(rng.normal(0.0, scale, (b,) + shape),
+                                     dtype=torch.float32, device=dev)
+                    y, fs = fused(fs, x)
+                    o, ps = plain(ps, input_audio=x)
+                    check(bool(torch.isfinite(y).all()),
+                          f"offline {name} {mode} B={b}: non-finite")
+                    err = max(err, rel_err(y, o["output_0"]))
+                    if mode == "bf16":
+                        o32, s32 = plain32(s32, input_audio=x)
+                        plain_dev = max(plain_dev, rel_err(o["output_0"],
+                                                           o32["output_0"]))
+                bar = REL_TOL if mode == "float" else bf16_bar(plain_dev)
+                check(err <= bar, f"offline {name} {mode} B={b}: kernel vs "
+                      f"plain rel err {err} > {bar}")
+                parts.append(f"{name} {mode} B={b} {err:.3e} (bar {bar:.3e})")
+    rvq = ResidualVectorQuantizer.from_model_path(path, dev)
+    feats = torch.tensor(rng.normal(0.0, 1.0, (1000, 64)),
+                         dtype=torch.float32, device=dev)
+    rows = [feats[i:i + 1] for i in range(feats.shape[0])]
+    got = torch.cat([rvq_kernel.rvq_encode(r, rvq.codebooks, rvq.c2, 46)
+                     for r in rows])
+    ref = torch.cat([rvq_kernel.rvq_encode_plain(r, rvq.codebooks, rvq.c2, 46)
+                     for r in rows])
+    n_diff = _rvq_near_ties("offline rvq_encode B=1", got, ref, feats, rvq)
+    check(n_diff <= len(rows) // 1000,
+          f"offline: rvq_encode at B=1, {n_diff} of {len(rows)} rows differ")
+    print(f"offline: whole models, kernel path vs plain, max rel err over 20 "
+          f"frames: {'; '.join(parts)}; rvq_encode at B=1 vs plain, 1000 "
+          f"single-row launches: {n_diff} rows differ (near-ties)")
+
+
+def _host_tree(tree):
+    """A copy of a state tree on the host."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.cpu().clone()
+
+
+def _differing_packet(enc, state, hop, got: bytes, want: bytes) -> str:
+    """Why a card packet `got` differs from the CPU facade's `want`, both
+    from the same pre-hop `state` (the CPU facade's): "dtx" if one of them
+    is a DTX empty packet, which must be a decision at the noise bound
+    (every log-mel bin within 1e-4 of estimate ± bound where it flips);
+    else "rvq", which must first differ at a near-tie of the CPU
+    features."""
+    import torch
+
+    from lyra_tpu_torch import packet
+    from lyra_tpu_torch.dsp import utils as dsp_utils
+
+    e = enc._engine
+    x = torch.from_numpy(hop.astype(np.float32)[None])
+    if e.resampler is not None:
+        x, _ = e.resampler.resample(state["resampler"], x)
+        x = dsp_utils.clip_to_int16(x).float()
+    if (got == b"") != (want == b""):
+        noise = state["noise"]
+        cur, _ = e.noise._mel.extract(noise["mel"], x)
+        margin = ((cur - noise["noise_estimate"]).abs()
+                  - noise["noise_bound"]).max().item()
+        check(abs(margin) <= 1e-4, f"offline: a DTX decision differs "
+              f"{margin:.3e} from the noise bound (card {len(got)} B, CPU "
+              f"{len(want)} B)")
+        return "dtx"
+    feats = e.soundstream.extract(state["soundstream"],
+                                  dsp_utils.int16_to_unit(x))[0]
+    n = len(packet.unpack_indices(want))
+    pad = lambda p: torch.tensor(np.pad(packet.unpack_indices(p), (0, 46 - n),
+                                        constant_values=-1))[None]
+    check(_rvq_near_ties("offline LyraEncoder", pad(got), pad(want), feats,
+                         e.rvq) == 1, "offline: differing packets, equal "
+          "indices")
+    return "rvq"
+
+
+def _offline_facades(path, signal):
+    """11.2: LyraEncoder and LyraDecoder at their default device (the card)
+    vs the same facades on the CPU (the plain versions).  Each carries its
+    own state, but with DTX on the CPU encoder starts every hop from the
+    card's pre-hop state: a noise decision at the bound may fall either
+    way on either device, and must not carry into later hops.  → (the
+    card's packets per rate and DTX, launch counts, summary)."""
+    from lyra_tpu_torch.codec import LyraDecoder, LyraEncoder
+    from lyra_tpu_torch.tools.packet_loss import GilbertModel
+
+    hops = OFFLINE_HOPS
+    packets, differ, lines = {}, {"rvq": 0, "dtx": 0}, []
+    _zero_launches()
+    for rate, audio in signal.items():
+        hop = rate // 50
+        for dtx in (False, True):
+            card = LyraEncoder(rate, 1, 6000, dtx, path)
+            cpu = LyraEncoder(rate, 1, 6000, dtx, path, device="cpu")
+            got = []
+            for h in audio[:hops]:
+                if dtx:
+                    cpu._state = _host_tree(card._state)
+                pre = cpu._state
+                g, w = card.encode(h), cpu.encode(h)
+                if g != w:
+                    differ[_differing_packet(cpu, pre, h, g, w)] += 1
+                got.append(g)
+            packets[rate, dtx] = got
+            empty = sum(p == b"" for p in got)
+            check((empty > 0) == dtx, f"offline: {empty} DTX empty packets "
+                  f"at {rate} Hz with DTX {'on' if dtx else 'off'}")
+            lines.append(f"{rate} Hz DTX {'on' if dtx else 'off'}: "
+                         f"{empty} empty")
+        # The decoder on the card's packets, Gilbert losses, random requests.
+        gilbert = GilbertModel.create(0.1, 2.0)
+        rng = np.random.RandomState(rate)
+        card, cpu = LyraDecoder(rate, 1, path), LyraDecoder(rate, 1, path,
+                                                           device="cpu")
+        worst = lost = comfort = 0
+        for p in packets[rate, False]:
+            if gilbert.is_packet_received():
+                check(card.set_encoded_packet(p) and cpu.set_encoded_packet(p),
+                      "offline: a packet was refused")
+            else:
+                lost += 1
+            done = 0
+            while done < hop:
+                n = min(int(rng.randint(1, hop + 1)), hop - done)
+                a, b = card.decode_samples(n), cpu.decode_samples(n)
+                check(a is not None and a.shape == (n,) == b.shape,
+                      f"offline: decode_samples({n}) gave {a!r}")
+                worst = max(worst, int(np.abs(a.astype(int)
+                                              - b.astype(int)).max()))
+                check(card.is_comfort_noise() == cpu.is_comfort_noise(),
+                      f"offline: is_comfort_noise differs at {rate} Hz")
+                done += n
+            comfort += card.is_comfort_noise()
+        check(worst <= 2, f"offline: LyraDecoder at {rate} Hz differs from "
+              f"the CPU by {worst} LSB")
+        lines.append(f"{rate} Hz decoder {lost} of {hops} lost, {comfort} "
+                     f"comfort-noise hops, max diff {worst} LSB")
+    launches = _float_path_launches("the facades")
+    total = 2 * len(signal) * hops
+    check(sum(differ.values()) <= total // 1000,
+          f"offline: {differ} of {total} packets differ")
+    return packets, launches, (
+        f"facades vs their CPU versions, {hops} hops each at 6 kbps: packets "
+        f"identical but {differ['rvq']} of {total} (RVQ near-ties) and "
+        f"{differ['dtx']} (DTX decisions at the noise bound); "
+        + "; ".join(lines))
+
+
+def _facade_pair(path, gpu):
+    """Per-hop wall time of the facade pair on the card at 16 kHz (encode
+    + set_encoded_packet + decode_samples(320), every hop function one
+    replay), after 3 warm hops (the captures); then 3 hops under the
+    profiler: device µs and CUDA kernels per hop."""
+    import torch
+
+    from lyra_tpu_torch.codec import LyraDecoder, LyraEncoder
+
+    audio = _speech(16000, OFFLINE_HOPS + 7, seed=13)
+    enc, dec = LyraEncoder(16000, 1, 6000, model_path=path), \
+        LyraDecoder(16000, model_path=path)
+
+    def hop(h):
+        check(dec.set_encoded_packet(enc.encode(h)), "offline: pair refused")
+        return dec.decode_samples(320)
+
+    for h in audio[:3]:
+        hop(h)
+    times = []
+    for h in audio[3:3 + OFFLINE_HOPS]:
+        t0 = time.perf_counter()
+        out = hop(h)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(out.shape == (320,), "offline: pair output shape")
+    events = _device_events(_profile_ticks(
+        lambda i: hop(audio[3 + OFFLINE_HOPS + i])))
+    device_us = sum(us for us, _ in events.values()) / 3
+    kernels = sum(c for n, (_, c) in events.items()
+                  if not n.startswith(("Memcpy", "Memset"))) / 3
+    copies = sum(c for n, (_, c) in events.items()
+                 if n.startswith("Memcpy")) / 3
+    p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
+    return (
+        f"facade pair at 16 kHz, float, B=1, captured: per-hop wall p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms, min {min(times):.3f} ms over "
+        f"{OFFLINE_HOPS} hops; per hop (profiler, 3 hops) {device_us:.1f} "
+        f"device µs in {kernels:g} CUDA kernels and {copies:g} copies "
+        f"[{gpu}]")
+
+
+class _RateLog:
+    """The CLIs' "Samples per second" log lines, as numbers."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                msg = record.getMessage()
+                if msg.startswith("Samples per second"):
+                    self.rates.append(float(msg.split(":")[1]))
+
+        self.rates, self._handler = [], Handler()
+        self._log = logging.getLogger("lyra_tpu")
+        self._level = self._log.level
+        self._log.addHandler(self._handler)
+        self._log.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.removeHandler(self._handler)
+        self._log.setLevel(self._level)
+
+
+def _offline_clis(path, tmp, signal, packets):
+    """11.3: encoder_main and decoder_main in process (their default
+    device, the card) on a 10 s wav per rate: `.lyra` = hops × 15 bytes,
+    its first packets equal 11.2's facade packets of the same samples,
+    decoded wavs of the right length twice (fixed loss pattern; Gilbert
+    loss with randomized request sizes)."""
+    from lyra_tpu_torch.tools import decoder_main, encoder_main
+    from lyra_tpu_torch.utils import wav
+
+    _zero_launches()
+    lines, rms = [], []
+    with _RateLog() as log:
+        for rate, audio in signal.items():
+            hops, hop = audio.shape
+            src = os.path.join(tmp, f"speech_{rate}.wav")
+            wav.write_wav_int16(src, audio.reshape(-1), rate)
+            check(encoder_main.main([
+                f"--input_path={src}", f"--output_dir={tmp}", "--bitrate=6000",
+                f"--model_path={path}"]) == 0, "offline: encoder_main failed")
+            lyra = os.path.join(tmp, f"speech_{rate}.lyra")
+            with open(lyra, "rb") as f:
+                data = f.read()
+            check(len(data) == hops * 15, f"offline: .lyra of {len(data)} B")
+            ref = b"".join(packets[rate, False])
+            check(data[:len(ref)] == ref, f"offline: encoder_main's packets "
+                  f"at {rate} Hz differ from the facade's")
+            for suffix, flags in (
+                    ("_fixed", ["--fixed_packet_loss_pattern=0.5,1.5:0.2,0.2"]),
+                    ("_gilbert", ["--packet_loss_rate=0.1",
+                                  "--average_burst_length=2",
+                                  "--randomize_num_samples_requested"])):
+                check(decoder_main.main([
+                    f"--encoded_path={lyra}", f"--output_dir={tmp}",
+                    f"--output_suffix={suffix}", f"--sample_rate_hz={rate}",
+                    "--bitrate=6000", f"--model_path={path}", *flags]) == 0,
+                    f"offline: decoder_main {suffix} failed")
+                out = wav.read_wav_int16(
+                    os.path.join(tmp, f"speech_{rate}{suffix}.wav"))
+                check(len(out.samples) == hops * hop
+                      and out.sample_rate_hz == rate,
+                      f"offline: decoded wav of {len(out.samples)} samples")
+                rms.append(float(np.sqrt(np.mean(
+                    out.samples.astype(float) ** 2))))
+                check(rms[-1] > 0.0, f"offline: decoder_main {suffix} wrote "
+                      f"silence")
+            enc_sps, *dec_sps = log.rates[-3:]
+            lines.append(
+                f"{rate} Hz: encoder_main {enc_sps / rate:.1f}x real time, "
+                f"decoder_main {dec_sps[0] / rate:.1f}x (fixed loss), "
+                f"{dec_sps[1] / rate:.1f}x (Gilbert, random requests), "
+                f"decoded RMS {rms[-2]:.1f} / {rms[-1]:.1f}")
+    check(len(log.rates) == 3 * len(signal), f"offline: {len(log.rates)} "
+          f"'Samples per second' lines")
+    return _float_path_launches("the CLIs"), "; ".join(lines)
+
+
+def _offline_batch(path, tmp):
+    """11.4: batch_transcode.main over 16 wavs of different lengths, each
+    with a trailing partial hop, 7 at 16 kHz and 9 at 48 kHz (odd B):
+    each `.lyra` (--mode=encode) byte for byte the single-stream
+    encoder's on the card, each decoded wav (--mode=transcode) within 1
+    LSB of cli_lib.decode_features through LyraDecoder."""
+    from lyra_tpu_torch import config
+    from lyra_tpu_torch.codec import LyraDecoder
+    from lyra_tpu_torch.tools import batch_transcode, cli_lib
+    from lyra_tpu_torch.utils import wav
+
+    indir, outdir = os.path.join(tmp, "batch_in"), os.path.join(tmp, "batch")
+    os.makedirs(indir)
+    files = []
+    for i in range(16):
+        rate = 16000 if i < 7 else 48000
+        hop = rate // 50
+        hops = 12 + 3 * i
+        samples = _speech(rate, hops + 1, seed=100 + i).reshape(-1)
+        samples = samples[:hops * hop + 1 + 11 * i]  # a partial hop
+        files.append((f"f{i:02d}", rate, samples))
+        wav.write_wav_int16(os.path.join(indir, f"f{i:02d}.wav"), samples,
+                            rate)
+    args = ["--input_glob", os.path.join(indir, "*.wav"), "--output_dir",
+            outdir, "--bitrate", "6000", "--model_path", path]
+    _zero_launches()
+    check(batch_transcode.main(args + ["--mode=encode"]) == 0,
+          "offline: batch_transcode --mode=encode failed")
+    check(batch_transcode.main(args + ["--mode=transcode"]) == 0,
+          "offline: batch_transcode --mode=transcode failed")
+    launches = _float_path_launches("batch_transcode")
+    worst = 0
+    for stem, rate, samples in files:
+        hop = rate // 50
+        whole = len(samples) // hop * hop
+        with open(os.path.join(outdir, f"{stem}.lyra"), "rb") as f:
+            data = f.read()
+        ref = cli_lib.encode_wav(samples[:whole], 1, rate, 6000, False,
+                                 False, path)
+        check(data == ref, f"offline: batch_transcode's {stem}.lyra differs "
+              f"from the single-stream encoder's ({len(data)} vs {len(ref)} "
+              f"B, first difference at byte "
+              f"{next((j for j, (a, b) in enumerate(zip(data, ref)) if a != b), None)})")
+        out = wav.read_wav_int16(os.path.join(outdir, f"{stem}_decoded.wav"))
+        want = cli_lib.decode_features(
+            data, config.bitrate_to_packet_size(6000), False,
+            LyraDecoder(rate, model_path=path, seed=0))
+        check(len(out.samples) == len(want) == whole,
+              f"offline: {stem} decoded {len(out.samples)} samples")
+        worst = max(worst, int(np.abs(out.samples.astype(int)
+                                      - want.astype(int)).max()))
+    check(worst <= 1, f"offline: batch_transcode audio {worst} LSB from the "
+          f"single-stream decoder")
+    return launches, (f"batch_transcode over 16 wavs (B=7 at 16 kHz, B=9 at "
+                      f"48 kHz, 12-57 hops + a partial hop): every .lyra "
+                      f"identical to the single-stream encoder's, decoded "
+                      f"audio within {worst} LSB of the single-stream "
+                      f"decoder's")
+
+
+def _b1_model_profiles(path, dev, gpu):
+    """One captured hop of each model at B=1 in each mode, 3 replays under
+    the profiler: device µs and CUDA kernels per hop, and the 3 kernels
+    that take the most device time."""
+    import torch
+
+    from lyra_tpu_torch.models.streaming import LyraGanModel, SoundStreamEncoder
+    from lyra_tpu_torch.utils.capture import GraphCache
+
+    lines = []
+    for cls, fn, width in ((SoundStreamEncoder, "extract", 320),
+                           (LyraGanModel, "decode_hop", 64)):
+        for mode in ("float", "bf16"):
+            model = cls(path, mode=mode, device=dev)
+            graphs = GraphCache(dev)
+            x = torch.zeros((1, width), dtype=torch.float32, device=dev)
+            state = [model.init_state(1)]
+
+            def hop(_=None):
+                _, state[0] = graphs.run(getattr(model, fn), "hop", state[0],
+                                         x)
+
+            for _ in range(3):
+                hop()
+            events = _device_events(_profile_ticks(hop))
+            kernels = {n: v for n, v in events.items()
+                       if not n.startswith(("Memcpy", "Memset"))}
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+            lines.append(
+                f"{cls.__name__} {mode}: "
+                f"{sum(us for us, _ in events.values()) / 3:.1f} device µs "
+                f"in {sum(c for _, c in kernels.values()) / 3:g} kernels; "
+                + ", ".join(f"{n[:60]} {us / 3:.1f} µs x {c // 3}"
+                            for n, (us, c) in top))
+    print(f"offline: one captured hop at B=1 per model and mode (profiler, "
+          f"3 hops): {'; '.join(lines)} [{gpu}]")
+
+
+def _offline_benchmarks(path, gpu):
+    """11.5: tools/benchmark.run_benchmark in float and bf16 at batch 1
+    and 1024, 200 conditioning vectors, then melspec_benchmark."""
+    from lyra_tpu_torch.tools import benchmark, melspec_benchmark
+
+    rows = []
+    for mode in ("float", "bf16"):
+        for batch in (1, 1024):
+            print(f"offline: tools/benchmark.py --mode={mode} --batch={batch} "
+                  f"--num_cond_vectors=200 [{gpu}]")
+            r = benchmark.run_benchmark(200, batch, 120, path, mode=mode)
+            rows.append(f"{mode} B={batch}: " + ", ".join(
+                f"{n} {s.mean_us:.1f}" for n, s in r["rows"].items())
+                + f" µs mean, {r['streams_per_chip']:.0f} streams per card")
+    print(f"offline: stage benchmark {'; '.join(rows)} [{gpu}]")
+    print(f"offline: melspec_benchmark --iters 50 [{gpu}]")
+    check(melspec_benchmark.main(["--iters", "50"]) == 0,
+          "offline: melspec_benchmark failed")
+
+
+def phase_offline(path, dev, gpu):
+    """Phase 11: the single-stream codec (LyraEncoder / LyraDecoder), the
+    encoder and decoder CLIs, batch_transcode and the stage benchmarks, at
+    each entry point's default device, the card."""
+    import tempfile
+
+    t_phase = time.time()
+    _offline_models(path, dev)
+    signal = {rate: _speech(rate, OFFLINE_CLI_SECONDS * 50)
+              for rate in (16000, 48000)}
+    launches = {}
+    packets, launches["facades"], summary = _offline_facades(path, signal)
+    print(f"offline: {summary}")
+    print(f"offline: {_facade_pair(path, gpu)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["clis"], summary = _offline_clis(path, tmp, signal, packets)
+        print(f"offline: CLIs in process, 10 s wavs: {summary} [{gpu}]")
+        launches["batch_transcode"], summary = _offline_batch(path, tmp)
+        print(f"offline: {summary}")
+    print("offline launches (warm-ups and captures; a replay launches no "
+          "wrapper): " + json.dumps(launches))
+    _offline_benchmarks(path, gpu)
+    _b1_model_profiles(path, dev, gpu)
+    print(f"offline: phase 11 took {time.time() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
@@ -1989,6 +2499,7 @@ def main(argv=None) -> int:
     phase_timing(path, BATCH, dev, gpu)
     phase_serve(path, BATCH, dev, gpu)
     phase_serve_process(path, dev, gpu)
+    phase_offline(path, dev, gpu)
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
     # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs

@@ -74,7 +74,7 @@ from lyra_tpu_torch.models.streaming import (
     mask_tree,
 )
 from lyra_tpu_torch.tflite.executor import compute_dtype
-from lyra_tpu_torch.utils.capture import GraphCache, as_input
+from lyra_tpu_torch.utils.capture import GraphCache, as_input, replay
 from lyra_tpu_torch.utils.device import resolve
 
 State = Dict[str, Any]
@@ -181,9 +181,10 @@ class _Compiled:
         its graph for `key` (its static arguments) in `graphs` (by default
         the engine's own), or eagerly where the engine's `graphs` is None.
         Inputs may be numpy arrays or tensors on any device."""
-        if self.graphs is not None:
-            return (graphs or self.graphs).run(fn, key, state, *inputs)
-        return fn(state, *(as_input(x).to(self.device) for x in inputs))
+        if self.graphs is None:
+            graphs = None  # eager: the CPU, or where a caller chose so
+        return replay(graphs or self.graphs, self.device, fn, key, state,
+                      *inputs)
 
     def _reset(self, state: State, mask, graphs: GraphCache | None = None,
                **init) -> State:

@@ -95,6 +95,17 @@ def as_input(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def replay(graphs: "GraphCache | None", device, fn: Callable, key,
+           state: Tree, *inputs) -> tuple:
+    """`fn(state, *inputs) -> (*outputs, new_state)` as one replay of its
+    graph for `key` in `graphs`, or eagerly on `device` where `graphs` is
+    None (the CPU).  Inputs may be numpy arrays or tensors on any
+    device."""
+    if graphs is not None:
+        return graphs.run(fn, key, state, *inputs)
+    return fn(state, *(as_input(x).to(device) for x in inputs))
+
+
 class _Graphs:
     """One full key: static inputs and outputs, a graph per input tree."""
 

@@ -8,6 +8,7 @@ their plain versions on CPU tensors).  Bar: max abs error ≤ 1e-5 ×
 max|ref| per frame (float32; the frameworks sum in different orders).
 """
 
+import ast
 import os
 
 import jax
@@ -286,3 +287,34 @@ def test_copied_parser_and_config_match_jax_package(fixture):
             jax_config.packet_size_to_num_quantized_bits(size)
     assert config.version_string() == jax_config.version_string()
     config.check_params_supported(16000, 1, root)
+
+
+def _code(path: str, name: str | None = None) -> str:
+    """The AST of a module without its docstring, with the package's name
+    read as the JAX package's (or of its top-level function `name`)."""
+    with open(path) as f:
+        tree = ast.parse(f.read().replace("lyra_tpu_torch", "lyra_tpu"))
+    body = tree.body
+    if name is not None:
+        body = [n for n in body
+                if isinstance(n, ast.FunctionDef) and n.name == name]
+    elif isinstance(body[0], ast.Expr) and isinstance(body[0].value,
+                                                      ast.Constant):
+        body = body[1:]
+    assert body, (path, name)
+    return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+@pytest.mark.parametrize("module,name", [
+    ("utils/wav.py", None),
+    ("tools/packet_loss.py", None),
+    ("codec/preprocessor.py", None),
+    ("dsp/utils.py", "convert_num_samples"),
+])
+def test_copied_modules_match_jax_package(module, name):
+    """The framework-free modules the port copies are the JAX package's
+    code statement for statement: only their docstrings and the package
+    name in their imports differ."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert _code(os.path.join(repo, "lyra_tpu_torch", module), name) == \
+        _code(os.path.join(repo, "lyra_tpu", module), name)

@@ -10,7 +10,9 @@ small synthetic fixture and runs one tick: float at 16 kHz, then bf16 at
 wire, snapshots a bf16 decoder and restores it bit for bit; then the
 port's serve_main serves a decode run over the native ingest and egress
 (transport, control plane, stats sink and the bridge's modules among the
-imports) and echoes PCM for the datagrams it is sent.
+imports) and echoes PCM for the datagrams it is sent; last, one hop goes
+through the single-stream facades (LyraEncoder → LyraDecoder) and a wav
+through the encoder and decoder CLIs.
 """
 
 import os
@@ -45,11 +47,16 @@ _CHILD = textwrap.dedent("""
         lyra_tpu_torch.__path__, "lyra_tpu_torch.")]
     for name in modules:
         importlib.import_module(name)
-    assert len(modules) >= 38, modules
+    assert len(modules) >= 52, modules
     assert {f"lyra_tpu_torch.{m}" for m in (
         "utils.native", "tools.jitter_buffer", "tools.udp_ingest",
         "tools.udp_egress", "tools.control_auth", "tools.fleet",
-        "tools.conference", "tools.serve_main")} <= set(modules)
+        "tools.conference", "tools.serve_main", "dsp.utils", "utils.wav",
+        "dsp.buffered_resampler", "codec.preprocessor", "codec.encoder",
+        "codec.decoder", "codec", "testing.fakes", "testing",
+        "tools.packet_loss", "tools.cli_lib", "tools.encoder_main",
+        "tools.decoder_main", "tools.batch_transcode", "tools.benchmark",
+        "tools.melspec_benchmark")} <= set(modules)
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler
@@ -137,6 +144,27 @@ _CHILD = textwrap.dedent("""
     th.join(60)
     assert not th.is_alive() and len(got) == 4
     assert all(len(d) == 6 + 640 for d in got)
+
+    from lyra_tpu_torch.codec import LyraDecoder, LyraEncoder
+    from lyra_tpu_torch.tools import decoder_main, encoder_main
+    from lyra_tpu_torch.utils import wav
+    speech = np.random.default_rng(3).normal(0, 3000, 5 * 320).astype(np.int16)
+    pkt = LyraEncoder(16000, 1, 6000, model_path=path,
+                      device="cpu").encode(speech[:320])
+    dec = LyraDecoder(16000, 1, path, device="cpu")
+    assert len(pkt) == 15 and dec.set_encoded_packet(pkt)
+    assert dec.decode_samples(320).shape == (320,)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav.write_wav_int16(os.path.join(tmp, "s.wav"), speech, 16000)
+        assert encoder_main.main([f"--input_path={tmp}/s.wav",
+                                  f"--output_dir={tmp}",
+                                  f"--model_path={path}"], device="cpu") == 0
+        assert os.path.getsize(os.path.join(tmp, "s.lyra")) == 5 * 8
+        assert decoder_main.main([f"--encoded_path={tmp}/s.lyra",
+                                  f"--output_dir={tmp}",
+                                  f"--model_path={path}"], device="cpu") == 0
+        assert len(wav.read_wav_int16(
+            os.path.join(tmp, "s_decoded.wav")).samples) == 5 * 320
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_TICK_OK")
 """)
