@@ -13,8 +13,9 @@ holds them, otherwise the synthetic full-width fixture
 (tests/golden/synthetic_lyra/full, random weights from a seed).
 
 Phases, one line each; any failed check raises and exits nonzero:
-  1. build    the CUDA kernels from lyra_tpu_torch/ops/csrc with nvcc, one
-              process per source, started together;
+  1. build    the CUDA kernels from lyra_tpu_torch/ops/csrc (conv_stack.cu,
+              rvq_encode.cu, core_ops.cu) with nvcc, one process per
+              source, started together;
   2. K1       the fused conv stack vs the plain executor (SoundStream and
               LyraGAN, B=64, 20 frames, state carried, TF32 off; bar
               1e-5 × max|plain|); bitwise equal to the unfused kernel path
@@ -144,6 +145,26 @@ Phases, one line each; any failed check raises and exits nonzero:
               melspec_benchmark, and one captured hop of each model at
               B=1 in each mode under the profiler (device µs, kernels,
               the three costliest).
+ 12. islands   the islands fixture (tests/golden/synthetic_lyra_islands/
+              full: int8 islands, QUANTIZE/DEQUANTIZE views, and the rest
+              of K1's op set: a MUL by a per-channel constant fused into a
+              conv launch, stride-2 time slices and a channel
+              concatenation on core_gather, MUL/ADD/DIV on core_eltwise, a
+              channel slice as a channel offset), both models in float
+              and bf16: vs the plain executor (B=64, 20 frames, phases
+              2-3's bars), f32 bitwise equal to the unfused path at B=64
+              and B=1024, one profiled eager hop per mode at B=1024 whose
+              core span holds only conv-stack kernels, one per launch
+              (launches per core printed: the core's convs plus its
+              core-kernel calls); each core-kernel call of one hop at
+              B=1024 on random operands bitwise equal to its plain version
+              and to one PyTorch call (torch.add / sub / mul / div,
+              torch.cat, a slice's .contiguous(): the library time), timed
+              as in phases 2-3; then phases 6-7's 50 captured engine ticks
+              on the fixture, float at 16 kHz (decoder within 2 int16 LSB
+              of the plain path's) and bf16 at 48 kHz (phase 7's bars),
+              device µs and CUDA kernels per replayed tick printed beside
+              phases 6-7's on the plain fixture.
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -152,9 +173,10 @@ Then one JSON line with every kernel (per hop at B=1024: kernel, plain
 and library time as eager medians in ms/plain_ms/library_ms and as
 graph-replay medians in graph_ms/plain_graph_ms/library_graph_ms, the
 cold-L2 single launch in cold_ms where measured, bound and what sets it,
-`launches`: the launches over the main paths' runs of phases 6 and 7,
-and `launches_per_tick`: the launches per replayed tick in those runs'
-profiler windows, both summed over the two phases), the card's name and
+`launches`: the launches over the main paths' runs of phases 6, 7 and
+12, and `launches_per_tick`: the launches per replayed tick in those
+runs' profiler windows, both summed over them; the core kernels run only
+on the islands fixture, in phase 12), the card's name and
 power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -178,6 +200,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FULL_FIXTURE = os.path.join(REPO, "tests", "golden", "synthetic_lyra", "full")
+# int8 islands and the rest of K1's op set, at the same widths (phase 12)
+ISLANDS_FIXTURE = os.path.join(REPO, "tests", "golden",
+                               "synthetic_lyra_islands", "full")
 REL_TOL = 1e-5
 BF16_REL_TOL = 3e-2  # whole models and engines in bf16 vs plain
 BF16_CALL_TOL = 2.0 ** -7  # one kernel call: two bf16 roundings
@@ -287,12 +312,13 @@ def phase_build():
     from lyra_tpu_torch.ops import cuda_build
 
     t0 = time.time()
-    sources = ("conv_stack.cu", "rvq_encode.cu")
+    sources = ("conv_stack.cu", "rvq_encode.cu", "core_ops.cu")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         libs = list(pool.map(cuda_build.build, sources))
     ptxas = []
-    for src in ("conv_stack", "rvq_encode"):
-        with open(os.path.join(cuda_build.BUILD_DIR, f"{src}.ptxas.txt")) as f:
+    for src in sources:
+        stem = os.path.splitext(src)[0]
+        with open(os.path.join(cuda_build.BUILD_DIR, f"{stem}.ptxas.txt")) as f:
             ptxas += [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     print(f"build: ok, {len(libs)} libraries from lyra_tpu_torch/ops/csrc in "
           f"{time.time() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
@@ -458,10 +484,13 @@ def _fused_calls(phase, fused, batch, dev, dtype, bar, stats, plans):
     import torch
 
     from lyra_tpu_torch.ops import conv_stack
+    from lyra_tpu_torch.ops.fused_stack import FusedLaunch
 
     gen = torch.Generator(device=dev).manual_seed(9)
     calls = []
     for launch in fused.plan:
+        if not isinstance(launch, FusedLaunch):  # core kernels: phase 12
+            continue
         t_x, c_x = launch.x_shape
 
         def rand(*shape):
@@ -1070,6 +1099,8 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         with open(profile_file, "w") as f:
             f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=60))
+    tick_numbers = {"device_us": sum(us for us, _ in events.values()) / 3,
+                    "kernels": all_kernels}
     return {k.name: launches[k.name] for k in kernels}, per_tick_launches, (
         f"B={batch} x {ticks} ticks at {enc.sample_rate_hz} Hz, {lost:.1%} "
         f"of hops lost, audio RMS {rms:.1f} (int16), {cn_count} "
@@ -1083,7 +1114,7 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         + f"; over the {ticks} ticks {clocks.summary()}; an eager tick's "
         f"kernels (profiler, 3 ticks): {all_us:.1f} device µs per tick, "
         f"{core_us:.1f} inside the conv stacks' core spans, "
-        f"{all_us - core_us:.1f} outside them")
+        f"{all_us - core_us:.1f} outside them"), tick_numbers
 
 
 def phase_main(path, batch, ticks, dev, profile_out):
@@ -1092,18 +1123,30 @@ def phase_main(path, batch, ticks, dev, profile_out):
 
     enc = EncoderEngine(16000, path, device=dev)
     dec = DecoderEngine(16000, path, device=dev)
-    launches, per_tick, summary = _drive(
+    launches, per_tick, summary, tick = _drive(
         enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile.txt"))
     unfused = _kernels_per_replayed_tick(*_unfused(
         (EncoderEngine(16000, path, device=dev),
          DecoderEngine(16000, path, device=dev))), batch, dev)
-    audio, received = _inputs(batch, ticks, dev)
-    num_bits = 120
+    b_ref, same_idx, worst_lsb = _vs_plain_f32(enc, dec, path, batch, dev)
+    print(f"main path: ok, {summary}; with the cores unfused {unfused:g} "
+          f"CUDA kernels per replayed tick; vs plain path (B={b_ref}, 10 "
+          f"ticks): rows with identical indices {same_idx:.4f}, decoder max "
+          f"diff {worst_lsb} LSB")
+    return launches, per_tick, tick
 
-    # Correctness against the plain path: the same indices through the
-    # plain decoder agree with the kernel decoder within 2 int16 LSB.
+
+def _vs_plain_f32(enc, dec, path, batch, dev, phase="main"):
+    """Correctness of the float slice at 16 kHz against the plain path: the
+    same indices through the plain decoder agree with the kernel decoder
+    within 2 int16 LSB, and 99 % of rows get identical indices.  →
+    (streams, share of identical rows, worst LSB)."""
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+
+    audio, received = _inputs(batch, TICKS, dev)
+    num_bits = 120
     b_ref = min(batch, 64)
     enc_p = EncoderEngine(16000, path, backend="plain", device=dev)
     dec_p = DecoderEngine(16000, path, backend="plain", device=dev)
@@ -1117,14 +1160,11 @@ def phase_main(path, batch, ticks, dev, profile_out):
         same_idx += (idx_p == idx_k).all(dim=1).float().mean().item() / 10
         out_p, _, dsp = dec_p.step(dsp, idx_k, r)
         worst_lsb = max(worst_lsb, (out_k - out_p).abs().max().item())
-    check(worst_lsb <= 2.0, f"kernel vs plain decoder: {worst_lsb} LSB")
-    check(same_idx >= 0.99, f"kernel vs plain encoder: {same_idx:.4f} rows "
-          f"with identical indices")
-    print(f"main path: ok, {summary}; with the cores unfused {unfused:g} "
-          f"CUDA kernels per replayed tick; vs plain path (B={b_ref}, 10 "
-          f"ticks): rows with identical indices {same_idx:.4f}, decoder max "
-          f"diff {worst_lsb} LSB")
-    return launches, per_tick
+    check(worst_lsb <= 2.0,
+          f"{phase}: kernel vs plain decoder: {worst_lsb} LSB")
+    check(same_idx >= 0.99, f"{phase}: kernel vs plain encoder: "
+          f"{same_idx:.4f} rows with identical indices")
+    return b_ref, same_idx, worst_lsb
 
 
 def _features(enc, state, audio):
@@ -1152,23 +1192,37 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
     from identical inputs: each tick the plain engines start from the
     kernel engines' pre-tick state (and the plain f32 engines from the same
     state widened), so a discrete decision cannot carry a difference."""
-    import torch
-
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.ops import conv_stack, rvq_kernel
 
-    rate, num_bits = RATE_BF16, 120
-    nq = num_bits // 4
+    rate = RATE_BF16
     enc = EncoderEngine(rate, path, mode="bf16", device=dev)
     dec = DecoderEngine(rate, path, mode="bf16", device=dev)
-    launches, per_tick, summary = _drive(
+    launches, per_tick, summary, tick = _drive(
         enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS, batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile_bf16.txt"))
     unfused = _kernels_per_replayed_tick(*_unfused(
         (EncoderEngine(rate, path, mode="bf16", device=dev),
          DecoderEngine(rate, path, mode="bf16", device=dev))), batch, dev)
+    print(f"main-bf16 path: ok, {summary}; with the cores unfused "
+          f"{unfused:g} CUDA kernels per replayed tick; "
+          f"{_vs_plain_bf16(enc, dec, path, batch, dev)}")
+    return launches, per_tick, tick
 
+
+def _vs_plain_bf16(enc, dec, path, batch, dev, phase="main-bf16"):
+    """The bf16 slice at 48 kHz vs the plain bf16 path from identical
+    inputs: each tick the plain engines start from the kernel engines'
+    pre-tick state (and the plain f32 engines from the same state
+    widened), so a discrete decision cannot carry a difference; features
+    and decoder audio within bf16_bar, indices identical.  → summary."""
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+
+    rate, num_bits = RATE_BF16, 120
+    nq = num_bits // 4
     b_ref = min(batch, 64)
     audio, received = _inputs(b_ref, 10, dev, enc.hop_samples)
     plain = {mode: (EncoderEngine(rate, path, backend="plain", mode=mode,
@@ -1190,7 +1244,7 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
         idx_k = enc.rvq.quantize(f_p, nq, method="kernel")
         idx_p = enc_p.rvq.quantize(f_p, nq, method="fast")
         check(torch.equal(idx_k, idx_p),
-              f"main-bf16: indices differ from identical features, tick {t}")
+              f"{phase}: indices differ from identical features, tick {t}")
         # Decoder audio from identical indices and pre-tick state.
         out_k, _, ds_next = dec.step(ds, idx_k, r)
         out_p, _, _ = dec_p.step(ds, idx_k, r)
@@ -1201,16 +1255,13 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
         ds = ds_next
     bars = {k: bf16_bar(v) for k, v in plain_dev.items()}
     for k in err:
-        check(err[k] <= bars[k], f"main-bf16: kernel vs plain bf16 {k} "
+        check(err[k] <= bars[k], f"{phase}: kernel vs plain bf16 {k} "
               f"rel err {err[k]} > {bars[k]}")
-    print(f"main-bf16 path: ok, {summary}; with the cores unfused "
-          f"{unfused:g} CUDA kernels per replayed tick; vs plain bf16 path "
-          f"(B={b_ref}, 10 "
-          f"ticks, identical inputs): indices identical, max rel err "
-          f"features {err['features']:.3e}, audio {err['audio']:.3e}; plain "
-          f"bf16 vs plain f32: features {plain_dev['features']:.3e}, audio "
-          f"{plain_dev['audio']:.3e}; bars {bars}")
-    return launches, per_tick
+    return (f"vs plain bf16 path (B={b_ref}, 10 ticks, identical inputs): "
+            f"indices identical, max rel err features "
+            f"{err['features']:.3e}, audio {err['audio']:.3e}; plain bf16 vs "
+            f"plain f32: features {plain_dev['features']:.3e}, audio "
+            f"{plain_dev['audio']:.3e}; bars {bars}")
 
 
 def phase_timing(path, batch, dev, gpu):
@@ -2458,6 +2509,201 @@ def phase_offline(path, dev, gpu):
     print(f"offline: phase 11 took {time.time() - t_phase:.1f} s")
 
 
+# ---- phase 12: the islands fixture (K1's whole op set) ----------------------
+
+def _islands_models(path, dev):
+    """Both models' FusedStack on the islands fixture in float and bf16 vs
+    the plain executor (B=64, 20 frames, state carried; phases 2-3's
+    bars), bitwise equal to `unfused` in f32, and one profiled eager hop
+    per mode whose core span holds only conv-stack kernels, one per launch
+    of the plan: the fixture's conv ops plus its core-kernel calls.  →
+    (summary, {dtype: the models' FusedStacks})."""
+    import torch
+
+    from lyra_tpu_torch.ops.fused_stack import CoreLaunch, FusedStack
+    from lyra_tpu_torch.tflite.executor import load_graph
+
+    rng = np.random.default_rng(12)
+    lines, stacks = [], {torch.float32: [], torch.bfloat16: []}
+    for name, shape, scale in MODELS:
+        p = os.path.join(path, f"{name}.tflite")
+        plain32 = load_graph(p, device=dev)
+        for mode in ("float", "bf16"):
+            fused = FusedStack(p, mode=mode, device=dev)
+            stacks[fused.graph.dtype].append(fused)
+            plain = plain32 if mode == "float" else load_graph(
+                p, mode="bf16", device=dev)
+            fs, ps, s32 = (fused.init_state(64), plain.init_state(64),
+                           plain32.init_state(64))
+            err = err32 = plain_dev = 0.0
+            for _ in range(20):
+                x = torch.tensor(rng.normal(0.0, scale, (64,) + shape),
+                                 dtype=torch.float32, device=dev)
+                y, fs = fused(fs, x)
+                o, ps = plain(ps, input_audio=x)
+                r = o["output_0"]
+                check(bool(torch.isfinite(y).all()),
+                      f"islands {name} {mode}: non-finite")
+                err = max(err, rel_err(y, r))
+                if mode == "bf16":
+                    o32, s32 = plain32(s32, input_audio=x)
+                    err32 = max(err32, rel_err(y, o32["output_0"]))
+                    plain_dev = max(plain_dev, rel_err(r, o32["output_0"]))
+            bar = REL_TOL if mode == "float" else bf16_bar(plain_dev)
+            check(err <= bar and err32 <= bar, f"islands {name} {mode}: rel "
+                  f"err {err} (vs plain f32 {err32}) > {bar}")
+            core = [launch for launch in fused.plan
+                    if isinstance(launch, CoreLaunch)]
+            convs = sum(fused.sg.ops[i].name in ("CONV_2D",
+                                                 "DEPTHWISE_CONV_2D",
+                                                 "TRANSPOSE_CONV")
+                        for i in fused._core)
+            check(len(fused.plan) - len(core) == convs and len(core) == sum(
+                r == "kernel" for r in fused.roles.values()),
+                  f"islands {name}: {len(fused.plan)} launches for {convs} "
+                  f"core convs and {len(core)} core-kernel calls")
+            line = (f"{name} {mode}: rel err vs plain {err:.3e}"
+                    + (f", vs plain f32 {err32:.3e}, plain bf16 vs plain f32 "
+                       f"{plain_dev:.3e}" if mode == "bf16" else "")
+                    + f" (bar {bar:.3e}); {len(fused.plan)} launches per core"
+                    f" = {len(fused.plan) - len(core)} convs + {len(core)} "
+                    f"core-kernel calls "
+                    f"({', '.join(f'{c.kind} op {c.op}' for c in core)}); ")
+            if mode == "float":
+                line += _bitwise_unfused(fused, shape, scale, dev) + "; "
+            lines.append(line + _core_kernels(fused, shape, scale, BATCH, dev))
+    return "; ".join(lines), stacks
+
+
+def _core_calls(stacks, batch, dev, stats):
+    """Each core-kernel call of one hop of `stacks` at `batch` on random
+    operands of its shapes (divisors in [1, 2)) vs its plain version
+    (bitwise) and vs one PyTorch call for the same function (torch.add /
+    sub / mul / div; torch.cat of the slices, or a slice's .contiguous());
+    → the timing calls with their (FLOP, bytes): every element of a
+    window or operand read once, the output written once, one FLOP per
+    elementwise output."""
+    import torch
+
+    from lyra_tpu_torch.ops.fused_stack import CoreLaunch, _mapped_shape
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    calls = []
+    for fused in stacks:
+        dtype = fused.graph.dtype
+        for launch in fused.plan:
+            if not isinstance(launch, CoreLaunch):
+                continue
+            srcs = (launch.args if launch.kind == "eltwise"
+                    else [p[0] for p in launch.args])
+            core = {}
+            for k, a in enumerate(srcs):
+                if isinstance(a, torch.Tensor):
+                    continue
+                shape = _mapped_shape(fused.sg.tensors[a].shape)
+                v = torch.randn((batch,) + shape, device=dev, generator=gen)
+                if launch.arg == "div" and k == 1:
+                    v = torch.rand((batch,) + shape, device=dev,
+                                   generator=gen) + 1.0
+                core[a] = v.to(dtype)
+            got, ref = launch(core), launch.plain(core)
+            ops = launch.operands(core)
+            if launch.kind == "eltwise":
+                lib = partial({"add": torch.add, "sub": torch.sub,
+                               "mul": torch.mul, "div": torch.div}[launch.arg],
+                              *ops)
+                nbytes = sum(t.numel() * t.element_size()  # each once
+                             for t in {t.data_ptr(): t for t in ops}.values())
+                flop = got.numel()
+            else:
+                wins = [p.window() for p in ops]
+                wins = [w if w.shape[0] == batch else w.expand(batch, -1, -1)
+                        for w in wins]
+                lib = (partial(torch.cat, wins, launch.arg) if len(wins) > 1
+                       else wins[0].contiguous)
+                nbytes = sum(p.rows * p.cols * (batch if p.src.dim() == 3
+                                                 else 1) * p.src.element_size()
+                             for p in ops)
+                flop = 0
+            name = f"islands {launch.kernel.name} (op {launch.op})"
+            check(got.dtype == ref.dtype == dtype and torch.equal(got, ref),
+                  f"{name}: differs from its plain version")
+            check(torch.equal(lib(), ref), f"library {name}: differs")
+            st = stats[launch.kernel.name]
+            st["calls"] += 1
+            calls.append((launch.kernel.name, partial(launch, core),
+                          partial(launch.plain, core), lib,
+                          (flop, nbytes + got.numel() * got.element_size())))
+    return calls
+
+
+def _islands_engines(path, batch, ticks, dev, plain_ticks):
+    """50 captured ticks of the engines at B=1024 on the islands fixture,
+    float at 16 kHz and bf16 at 48 kHz (phases 6-7's `_drive`: ~10 % loss,
+    launches counted, profiler window, finite speech-level output), then
+    the kernel path vs the plain path (float: decoder within 2 int16 LSB on
+    the same indices; bf16: phase 7's bars from identical inputs).  →
+    (launches, per-tick launches, summary)."""
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    launches, per_tick, lines = {}, {}, []
+    for mode, rate, kernels in (
+            ("float", 16000, conv_stack.KERNELS_F32 + conv_stack.CORE_F32),
+            ("bf16", RATE_BF16,
+             conv_stack.KERNELS_BF16 + conv_stack.CORE_BF16)):
+        enc = EncoderEngine(rate, path, mode=mode, device=dev)
+        dec = DecoderEngine(rate, path, mode=mode, device=dev)
+        counts, ticks_, summary, tick = _drive(
+            enc, dec, kernels + rvq_kernel.KERNELS, batch, ticks, dev, None)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+            per_tick[name] = per_tick.get(name, 0) + ticks_[name]
+        if mode == "float":
+            b_ref, same_idx, lsb = _vs_plain_f32(enc, dec, path, batch, dev,
+                                                 "islands")
+            vs = (f"vs plain path (B={b_ref}, 10 ticks): rows with identical "
+                  f"indices {same_idx:.4f}, decoder max diff {lsb} LSB")
+        else:
+            vs = _vs_plain_bf16(enc, dec, path, batch, dev, "islands")
+        plain = plain_ticks[mode]
+        lines.append(
+            f"{mode} {rate // 1000} kHz: {summary}; {vs}; per captured tick "
+            f"{tick['device_us']:.1f} device µs in {tick['kernels']:g} CUDA "
+            f"kernels vs the plain fixture's {plain['device_us']:.1f} µs in "
+            f"{plain['kernels']:g} (phase {6 if mode == 'float' else 7})")
+    return launches, per_tick, "; ".join(lines)
+
+
+def phase_islands(batch, dev, stats, gpu, plain_ticks):
+    """Phase 12: the islands fixture (int8 islands and the rest of K1's op
+    set, tests/golden/synthetic_lyra_islands/full) through the fused
+    stacks, the core kernels and the engines.  → (launches, per-tick
+    launches) of its engine runs."""
+    import torch
+
+    from lyra_tpu_torch.ops import conv_stack
+
+    t_phase = time.time()
+    summary, stacks = _islands_models(ISLANDS_FIXTURE, dev)
+    print(f"islands models: ok, {summary}")
+    for dtype, kernels, phase in (
+            (torch.float32, conv_stack.CORE_F32, "islands"),
+            (torch.bfloat16, conv_stack.CORE_BF16, "islands-bf16")):
+        calls = _core_calls(stacks[dtype], batch, dev, stats)
+        print(f"{phase} core kernels: ok, every call of one hop at "
+              f"B={batch} bitwise equal to its plain version and to its "
+              f"library call: " + ", ".join(
+                  f"{k.name} {stats[k.name]['calls']} calls" for k in kernels))
+        _time_rounds(phase, calls, kernels, batch, stats, gpu,
+                     PEAK_FP32_FLOPS, "FP32")
+    launches, per_tick, summary = _islands_engines(
+        ISLANDS_FIXTURE, batch, TICKS, dev, plain_ticks)
+    print(f"islands engines: ok, {summary}")
+    print(f"islands: phase 12 took {time.time() - t_phase:.1f} s")
+    return launches, per_tick
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
@@ -2490,9 +2736,10 @@ def main(argv=None) -> int:
     phase_k2(ResidualVectorQuantizer.from_model_path(path, dev), BATCH, dev,
              stats, gpu)
     phase_rates(BATCH, dev)
-    launches, per_tick = {}, {}
-    for phase in (phase_main, phase_main_bf16):
-        counts, ticks = phase(path, BATCH, TICKS, dev, args.profile_out)
+    launches, per_tick, plain_ticks = {}, {}, {}
+    for phase, mode in ((phase_main, "float"), (phase_main_bf16, "bf16")):
+        counts, ticks, plain_ticks[mode] = phase(path, BATCH, TICKS, dev,
+                                                 args.profile_out)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
             per_tick[name] = per_tick.get(name, 0) + ticks[name]
@@ -2500,6 +2747,10 @@ def main(argv=None) -> int:
     phase_serve(path, BATCH, dev, gpu)
     phase_serve_process(path, dev, gpu)
     phase_offline(path, dev, gpu)
+    counts, ticks = phase_islands(BATCH, dev, stats, gpu, plain_ticks)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+        per_tick[name] = per_tick.get(name, 0) + ticks[name]
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
     # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs

@@ -16,12 +16,20 @@ weights pre-laid out for the kernels:
 
 and, as keyword arguments (`Fusion`), the graph ops a launch absorbs: the
 state rows its input follows (CONCATENATION of a READ_VARIABLE), the
-channels it reads (SPLIT), a LEAKY_RELU on x's rows as they are loaded, a
-residual ADD/SUB and a LEAKY_RELU on its output, the rows a transpose conv
-keeps (STRIDED_SLICE), and the new state it writes beside its output
-(STRIDED_SLICE → ASSIGN_VARIABLE of the concatenation).  A call given
-`side` returns `(out, new_state)`; without any of them the kernels are the
-plain convs.  ops/fused_stack.py plans which ops each launch absorbs.
+channels it reads (SPLIT, or a STRIDED_SLICE of a channel range), a
+LEAKY_RELU on x's rows as they are loaded, a residual ADD/SUB, a MUL or DIV
+by a per-channel constant and a LEAKY_RELU on its output, the rows a
+transpose conv keeps (STRIDED_SLICE), and the new state it writes beside
+its output (STRIDED_SLICE → ASSIGN_VARIABLE of the concatenation).  A call
+given `side` returns `(out, new_state)`; without any of them the kernels
+are the plain convs.  ops/fused_stack.py plans which ops each launch
+absorbs.
+
+The core's ops that no conv launch absorbs run as two kernels of their own
+(ops/csrc/core_ops.cu): `eltwise` (ADD/SUB/MUL/DIV of two tensors, or of a
+tensor and a constant per channel or one constant) and `gather` (a
+CONCATENATION along time or channels of strided windows of tensors or
+constants: a concatenation, a STRIDED_SLICE, or both in one launch).
 
 Each comes in float32 and bfloat16, chosen by the operands' dtype, which
 must be one of the two and the same for all of them.  The bf16 kernels
@@ -44,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +60,7 @@ from lyra_tpu_torch.ops import cuda_build
 from lyra_tpu_torch.tflite import executor
 
 _SOURCE = "lyra_tpu_torch/ops/csrc/conv_stack.cu"
+_CORE_SOURCE = "lyra_tpu_torch/ops/csrc/core_ops.cu"
 _REPLACES = "lyra_tpu/ops/fused_stack.py:488"
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
@@ -62,13 +71,25 @@ def _counters(suffix: str):
                               "transpose_conv1d_fwd"))
 
 
+def _core_counters(suffix: str):
+    return tuple(cuda_build.KernelCounter(f"{name}{suffix}", _CORE_SOURCE,
+                                          _REPLACES)
+                 for name in ("core_eltwise", "core_gather"))
+
+
 CONV1D, DEPTHWISE, TCONV = _counters("")
 CONV1D_BF16, DEPTHWISE_BF16, TCONV_BF16 = _counters("_bf16")
+ELTWISE, GATHER = _core_counters("")
+ELTWISE_BF16, GATHER_BF16 = _core_counters("_bf16")
+CORE_F32 = (ELTWISE, GATHER)
+CORE_BF16 = (ELTWISE_BF16, GATHER_BF16)
 KERNELS_F32 = (CONV1D, DEPTHWISE, TCONV)
 KERNELS_BF16 = (CONV1D_BF16, DEPTHWISE_BF16, TCONV_BF16)
-KERNELS = KERNELS_F32 + KERNELS_BF16
+KERNELS = KERNELS_F32 + KERNELS_BF16 + CORE_F32 + CORE_BF16
 # dtype → (conv1d, depthwise, transpose conv) counters
 BY_DTYPE = {torch.float32: KERNELS_F32, torch.bfloat16: KERNELS_BF16}
+# dtype → (eltwise, gather) counters
+CORE_BY_DTYPE = {torch.float32: CORE_F32, torch.bfloat16: CORE_BF16}
 
 
 class _FusedOps(ctypes.Structure):
@@ -78,7 +99,10 @@ class _FusedOps(ctypes.Structure):
                     "T_s", "ld", "c_off", "res_mode", "crop0", "side_begin",
                     "side_rows", "leaky_in", "leaky_res", "leaky_out")]
                 + [(n, ctypes.c_float)
-                   for n in ("alpha_in", "alpha_res", "alpha_out")])
+                   for n in ("alpha_in", "alpha_res", "alpha_out")]
+                + [("chan", ctypes.c_void_p)]
+                + [(n, ctypes.c_int)
+                   for n in ("chan_mode", "chan_pos", "chan_stride")])
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,13 +167,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 # -- fused operands ---------------------------------------------------------------
 
 RES_OPS = {"add": 1, "sub": 2, "rsub": 3}  # out + res, out − res, res − out
+CHAN_OPS = {"mul": 1, "div": 2}  # out · chan, out / chan
 
 
 class Fusion(NamedTuple):
     """The graph ops one conv launch absorbs, around its input x [B, T_x,
     C_x] and its output.  The conv reads cat(state, leaky_in(x)) along time,
     channels split[0] .. split[0] + split[1] of it; its finished output
-    passes the residual op, then leaky_out; a transpose conv keeps rows
+    passes the residual op, then leaky_out, with `chan_op` by `chan` (one
+    value per output channel, or one value) before them (chan_pos 0),
+    between them (1) or after them (2); a transpose conv keeps rows
     crop[0] .. crop[1] of its result (then `res` has the kept rows); `side`
     = (begin, rows) also returns rows begin .. begin + rows of the
     concatenation, all C_x channels (the new state)."""
@@ -162,17 +189,21 @@ class Fusion(NamedTuple):
     leaky_out: Optional[float] = None  # alpha
     crop: Optional[Tuple[int, int]] = None  # transpose conv only
     side: Optional[Tuple[int, int]] = None  # (begin, rows)
+    chan: Optional[torch.Tensor] = None  # [O] or [1]
+    chan_op: str = "mul"  # a key of CHAN_OPS
+    chan_pos: int = 0
 
     def any(self) -> bool:
         return any(v is not None for k, v in self._asdict().items()
-                   if k != "res_op")
+                   if k not in ("res_op", "chan_op", "chan_pos"))
 
 
 def fused_plain(conv_plain: Callable, x, w, bias, extra, f: Fusion):
     """The plain version of a fused launch: the graph's torch ops in the
     graph's order (LEAKY_RELU, CONCATENATION, SPLIT, the conv, ADD/SUB,
-    STRIDED_SLICE, LEAKY_RELU; the crop commutes with the elementwise ops)
-    in x's dtype.  → out, or (out, new state) with `side`."""
+    STRIDED_SLICE, LEAKY_RELU, and MUL/DIV where chan_pos puts it; the crop
+    commutes with the elementwise ops) in x's dtype.  → out, or (out, new
+    state) with `side`."""
     if f.leaky_in is not None:
         x = executor.leaky_relu(x, f.leaky_in)
     cat = x if f.state is None else torch.cat([f.state, x], dim=1)
@@ -182,14 +213,23 @@ def fused_plain(conv_plain: Callable, x, w, bias, extra, f: Fusion):
     y = conv_plain(conv_in, w, bias, *extra)
     if f.crop is not None:
         y = y[:, f.crop[0]:f.crop[1]]
+
+    def chan(y, pos):
+        if f.chan is None or f.chan_pos != pos:
+            return y
+        return y * f.chan if f.chan_op == "mul" else y / f.chan
+
+    y = chan(y, 0)
     if f.res is not None:
         r = f.res
         if f.res_leaky is not None:
             r = executor.leaky_relu(r, f.res_leaky)
         y = (y + r if f.res_op == "add" else y - r if f.res_op == "sub"
              else r - y)
+    y = chan(y, 1)
     if f.leaky_out is not None:
         y = executor.leaky_relu(y, f.leaky_out)
+    y = chan(y, 2)
     if f.side is None:
         return y
     begin, rows = f.side
@@ -218,6 +258,13 @@ def _fused_ops(x: torch.Tensor, f: Fusion, t_in: int, out: torch.Tensor):
         ops.res, ops.res_mode = f.res.data_ptr(), RES_OPS[f.res_op]
     if f.crop is not None:
         ops.crop0 = f.crop[0]
+    if f.chan is not None:
+        if f.chan.numel() not in (1, out.shape[2]) or f.chan_pos not in (0, 1, 2):
+            raise ValueError(f"chan {tuple(f.chan.shape)} at {f.chan_pos} for "
+                             f"output {tuple(out.shape)}")
+        ops.chan, ops.chan_mode = f.chan.data_ptr(), CHAN_OPS[f.chan_op]
+        ops.chan_pos = f.chan_pos
+        ops.chan_stride = int(f.chan.numel() > 1)
     side = None
     if f.side is not None:
         begin, rows = f.side
@@ -396,7 +443,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     the ops of `fused` (Fusion's fields; T_in, C_in are the input's after
     them)."""
     f = Fusion(**fused)
-    if not _on_cuda(x, w, bias, f.state, f.res):
+    if not _on_cuda(x, w, bias, f.state, f.res, f.chan):
         return fused_plain(conv1d_plain, x, w, bias, (stride,), f)
     b = x.shape[0]
     t_in, c_in = _conv_input(x, f)
@@ -419,7 +466,7 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     [B, T_in − (K − 1)·dilation, C], with the ops of `fused` (no split or
     crop; T_in counts the state rows)."""
     f = Fusion(**fused)
-    if not _on_cuda(x, w, bias, f.state, f.res):
+    if not _on_cuda(x, w, bias, f.state, f.res, f.chan):
         return fused_plain(depthwise_conv1d_plain, x, w, bias, (dilation,), f)
     b, _, c = x.shape
     t_in = _conv_input(x, f)[0]
@@ -443,7 +490,7 @@ def transpose_conv1d(x: torch.Tensor, w: torch.Tensor,
     t_out ≤ (T_in − 1)·stride + K, with the ops of `fused` (a crop keeps
     rows crop[0] .. crop[1] ≤ t_out of that)."""
     f = Fusion(**fused)
-    if not _on_cuda(x, w, bias, f.state, f.res):
+    if not _on_cuda(x, w, bias, f.state, f.res, f.chan):
         return fused_plain(transpose_conv1d_plain, x, w, bias,
                            (stride, t_out), f)
     b = x.shape[0]
@@ -460,3 +507,146 @@ def transpose_conv1d(x: torch.Tensor, w: torch.Tensor,
     _launch(2, x, _ptr(x), _ptr(w), _ptr(bias), _ptr(out), b, t_in, i,
             end - begin, o, k, stride, ops)
     return _result(out, side)
+
+
+# -- the core's own kernels (ops/csrc/core_ops.cu) -----------------------------
+
+ELTWISE_OPS = {"add": 1, "sub": 2, "mul": 3, "div": 4}
+_FULL, _PER_CHANNEL, _SCALAR = 0, 1, 2  # operand layouts of core_eltwise
+
+
+class _GatherPart(ctypes.Structure):
+    """core_ops.cu's `struct GatherPart`, field for field."""
+    _fields_ = ([("src", ctypes.c_void_p), ("b_stride", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in (
+                    "ld", "row0", "rstride", "col0", "cstride", "extent")])
+
+
+GATHER_MAX_PARTS = 8  # core_ops.cu's kMaxParts
+
+
+@functools.lru_cache(maxsize=None)
+def _core_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("core_ops.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for suffix in _SUFFIX.values():
+        elt = getattr(lib, f"lyra_core_eltwise{suffix}")
+        elt.argtypes = [p, p, p, ctypes.c_longlong] + [i] * 4 + [p]
+        gat = getattr(lib, f"lyra_core_gather{suffix}")
+        gat.argtypes = [ctypes.POINTER(_GatherPart)] + [i] * 2 + [p] \
+            + [i] * 3 + [p]
+        elt.restype = gat.restype = ctypes.c_int
+    return lib
+
+
+def _core_launch(which: int, x: torch.Tensor, *args) -> None:
+    """Launch core kernel `which` (0 eltwise, 1 gather) of x's dtype, check
+    the launch and count it."""
+    counter = CORE_BY_DTYPE[x.dtype][which]
+    err = getattr(_core_lib(), f"lyra_{counter.name}")(
+        *args, cuda_build.stream_handle(x.device))
+    cuda_build.check(err, counter.name)
+    counter.launches += 1
+
+
+def eltwise_plain(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """ADD/SUB/MUL/DIV as the graph's torch ops, broadcasting a constant."""
+    return {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+            "div": torch.div}[op](a, b)
+
+
+def _layout(t: torch.Tensor, shape, c: int) -> int:
+    if tuple(t.shape) == tuple(shape):
+        return _FULL
+    if t.numel() == 1:
+        return _SCALAR
+    if t.numel() == c and t.shape[-1] == c:
+        return _PER_CHANNEL
+    raise ValueError(f"eltwise operand {tuple(t.shape)} for {tuple(shape)}")
+
+
+def eltwise(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """`a op b` (op a key of ELTWISE_OPS) over [B, T, C]: each operand a
+    tensor of that shape, a constant per channel (C values) or one
+    constant; at least one a tensor.  The kernel core_eltwise on CUDA
+    tensors; the plain version (torch's op) on CPU tensors."""
+    full = a if a.dim() == 3 else b
+    if not _on_cuda(full, a, b):
+        return eltwise_plain(a, b, op)
+    shape, c = full.shape, full.shape[-1]
+    la, lb = _layout(a, shape, c), _layout(b, shape, c)
+    out = torch.empty_like(full)
+    _core_launch(0, full, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 out.numel(), c, la, lb, ELTWISE_OPS[op])
+    return out
+
+
+class GatherPart(NamedTuple):
+    """One part of a gather: rows row0 + t·rstride (t < rows) and channels
+    col0 + c·cstride (c < cols) of `src` — a tensor [B, T_p, C_p] or a
+    constant [T_p, C_p], the same for every stream."""
+    src: torch.Tensor
+    row0: int
+    rstride: int  # ≥ 1, as cstride
+    rows: int
+    col0: int
+    cstride: int
+    cols: int
+
+    def window(self) -> torch.Tensor:
+        """The part as [B or 1, rows, cols] (a view)."""
+        src = self.src if self.src.dim() == 3 else self.src.unsqueeze(0)
+        return src[:, self.row0:self.row0 + (self.rows - 1) * self.rstride + 1:
+                   self.rstride,
+                   self.col0:self.col0 + (self.cols - 1) * self.cstride + 1:
+                   self.cstride]
+
+
+def gather_plain(parts: Sequence[GatherPart], axis: int,
+                 batch: int) -> torch.Tensor:
+    """The parts' windows concatenated along `axis` (1 time, 2 channels),
+    the graph's STRIDED_SLICE and CONCATENATION as torch ops."""
+    wins = [p.window() for p in parts]
+    wins = [w.expand(batch, -1, -1) if w.shape[0] != batch else w
+            for w in wins]
+    return wins[0].contiguous() if len(wins) == 1 else torch.cat(wins, axis)
+
+
+def gather(parts: Sequence[GatherPart], axis: int, batch: int) -> torch.Tensor:
+    """The concatenation along `axis` (1 time, 2 channels) of the parts'
+    windows, [batch, T, C]: the kernel core_gather on CUDA tensors, the
+    plain version on CPU tensors."""
+    if not 1 <= len(parts) <= GATHER_MAX_PARTS or axis not in (1, 2):
+        raise ValueError(f"gather of {len(parts)} parts along axis {axis}")
+    first = parts[0].src
+    if not _on_cuda(first, *(p.src for p in parts)):
+        return gather_plain(parts, axis, batch)
+    rows = [p.rows for p in parts]
+    cols = [p.cols for p in parts]
+    if axis == 1:
+        t, c = sum(rows), cols[0]
+        ok = all(n == c for n in cols)
+    else:
+        t, c = rows[0], sum(cols)
+        ok = all(n == t for n in rows)
+    structs = (_GatherPart * len(parts))()
+    for s, p in zip(structs, parts):
+        shared = p.src.dim() == 2
+        t_p, c_p = p.src.shape[-2:]
+        last_r = p.row0 + (p.rows - 1) * p.rstride
+        last_c = p.col0 + (p.cols - 1) * p.cstride
+        ok = ok and (shared or p.src.shape[0] == batch) and min(
+            p.rstride, p.cstride, p.rows, p.cols) >= 1 and all(
+            0 <= v < n for v, n in ((p.row0, t_p), (last_r, t_p),
+                                    (p.col0, c_p), (last_c, c_p)))
+        s.src, s.b_stride = p.src.data_ptr(), 0 if shared else t_p * c_p
+        s.ld, s.row0, s.rstride = c_p, p.row0, p.rstride
+        s.col0, s.cstride = p.col0, p.cstride
+        s.extent = p.rows if axis == 1 else p.cols
+    if not ok:
+        raise ValueError(f"gather parts {[tuple(p[1:]) for p in parts]} "
+                         f"along axis {axis}")
+    out = torch.empty((batch, t, c), device=first.device, dtype=first.dtype)
+    _core_launch(1, first, structs, len(parts), axis, out.data_ptr(), batch,
+                 t, c)
+    return out

@@ -7,12 +7,19 @@
 // launch over channels-last [B, T, C] activations, and the launch absorbs
 // the graph ops around it (ops/fused_stack.py plans them from the graph's
 // dataflow; see "fused operands" below): the state CONCATENATION ahead of
-// its input, read from two pointers, a SPLIT's channel offset, LEAKY_RELU
-// on load, and on its output the residual ADD/SUB, a transpose conv's
+// its input, read from two pointers, a SPLIT's or a channel STRIDED_SLICE's
+// channel offset, LEAKY_RELU on load, and on its output the residual
+// ADD/SUB, a MUL or DIV by a per-channel constant, a transpose conv's
 // STRIDED_SLICE crop and LEAKY_RELU; the new state (STRIDED_SLICE →
-// ASSIGN_VARIABLE) is a side store of the same launch.  So no other kernel
-// runs between the core's first conv and its last.  Each kernel family has
-// a template flag FUSED; the FUSED=false instances are the plain convs.  In
+// ASSIGN_VARIABLE) is a side store of the same launch.  The core's other
+// ops (elementwise ops of two tensors, concatenations and slices that no
+// conv reads as it loads) run as the kernels of core_ops.cu, so no torch
+// kernel runs between the core's first launch and its last.  QUANTIZE and
+// DEQUANTIZE are views (identity in float and bf16, as in the Pallas
+// kernel).  Each kernel family has a template argument FUSED: kPlain (the
+// plain convs), kFused (with the fused operands) or kChan (also with the
+// MUL / DIV, whose divisions, inlined into the other instances, slowed them
+// on the card even where no launch had one: PERF.md §6).  In
 // f32 the fused ops apply to the finished sum in the graph's order (with
 // __fmul_rn / __fadd_rn, never contracted into an FMA), so a fused launch
 // gives the bits of the plain kernel followed by the graph's torch ops.
@@ -149,11 +156,20 @@ struct FusedOps {
   int side_begin, side_rows;
   int leaky_in, leaky_res, leaky_out;
   float alpha_in, alpha_res, alpha_out;
+  const void* chan;  // MUL / DIV by a constant per output channel
+  int chan_mode;     // 1 out · chan, 2 out / chan
+  int chan_pos;      // 0 before the residual, 1 after it, 2 after leaky_out
+  int chan_stride;   // 1: one value per channel; 0: one value for all
 };
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// The kernels' FUSED template argument: the plain conv, the conv with its
+// fused operands, and with them a MUL / DIV by a per-channel constant (its
+// own instances, so that the others keep their code).
+constexpr int kPlain = 0, kFused = 1, kChan = 2;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -260,7 +276,9 @@ __device__ __forceinline__ void ldg_vec(float (&v)[V], const bf16* p) {
 //   output side  on the finished f32 sum (bias included), in this order:
 //                the residual (ADD, or SUB either way round, of a tensor in
 //                the output's layout, itself through a LEAKY_RELU on load
-//                where asked), then a LEAKY_RELU; one rounding after them;
+//                where asked), then a LEAKY_RELU, with a MUL or DIV by a
+//                per-channel constant (chan) before, between or after them
+//                (chan_pos, the graph's order); one rounding after them;
 //                a transpose conv writes only the rows [crop0, crop0 +
 //                T_out) of its result (STRIDED_SLICE);
 //   side store   the new state, rows [side_begin, side_begin + side_rows)
@@ -301,6 +319,8 @@ struct Fused {
   int T_s, ld, c_off, res_mode, crop0, side_begin, side_rows, side_vec;
   int leaky_in, leaky_res, leaky_out;
   float alpha_in, alpha_res, alpha_out;
+  const T* chan;
+  int chan_mode, chan_pos, chan_stride;
 
   // A value of an input row as loaded: x's rows (x_row) through the load
   // LEAKY_RELU where asked, state rows as they are.
@@ -308,16 +328,39 @@ struct Fused {
     return leaky_in && x_row ? leaky_stored<T>(v, alpha_in) : v;
   }
 
+  // The constant of output channel n (0 without a MUL / DIV), read once
+  // per thread through the read-only path, ahead of the stores: a load
+  // between stores to `out` would wait for them.
+  __device__ __forceinline__ float chan_at(int n) const {
+    return chan != nullptr ? to_f32<T>(__ldg(chan + n * chan_stride)) : 0.0f;
+  }
+
+  __device__ __forceinline__ float chan_op(float v, float s) const {
+    return chan_mode == 1 ? __fmul_rn(v, s) : __fdiv_rn(v, s);
+  }
+
   // The output ops on the finished sum v, r the element of the residual
-  // at the same place (if any) as loaded.
-  __device__ __forceinline__ float out(float v, float r) const {
+  // at the same place (if any) as loaded; CHAN (the kChan instances): with
+  // the MUL / DIV by s, its channel's constant, at chan_pos.
+  template <bool CHAN>
+  __device__ __forceinline__ float out(float v, float r, float s) const {
+    if constexpr (CHAN) {
+      if (chan_pos == 0) v = chan_op(v, s);
+    }
     if (res != nullptr) {
       if (leaky_res) r = leaky_stored<T>(r, alpha_res);
       v = res_mode == 1   ? __fadd_rn(v, r)
           : res_mode == 2 ? __fsub_rn(v, r)
                           : __fsub_rn(r, v);
     }
-    return leaky_out ? leaky_f32(v, alpha_out) : v;
+    if constexpr (CHAN) {
+      if (chan_pos == 1) v = chan_op(v, s);
+    }
+    v = leaky_out ? leaky_f32(v, alpha_out) : v;
+    if constexpr (CHAN) {
+      if (chan_pos == 2) v = chan_op(v, s);
+    }
+    return v;
   }
 };
 
@@ -349,6 +392,10 @@ Fused<T> fused_from(const FusedOps& f, const void* x) {
   u.alpha_in = f.alpha_in;
   u.alpha_res = f.alpha_res;
   u.alpha_out = f.alpha_out;
+  u.chan = static_cast<const T*>(f.chan);
+  u.chan_mode = f.chan_mode;
+  u.chan_pos = f.chan_pos;
+  u.chan_stride = f.chan_stride;
   return u;
 }
 
@@ -453,7 +500,7 @@ struct DwArgs {
 // passes the output ops before its store; all threads share the side
 // store first (the C = ld channels of a row: a depthwise conv has no
 // SPLIT).
-template <typename T, int V, int J, int KT, bool FUSED>
+template <typename T, int V, int J, int KT, int FUSED>
 __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
   const long long bz = blockIdx.z;
   if constexpr (FUSED) {
@@ -493,6 +540,11 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
       ldg_vec<V>(v, x + m * step);
     }
   };
+  // FUSED: the constants of the thread's channels.
+  float sv[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    sv[e] = FUSED == kChan ? a.f.chan_at(c + e) : 0.0f;
   // Output t + j·d from its finished sums.
   auto store = [&](float (&acc)[V], int j) {
     if constexpr (FUSED) {
@@ -501,7 +553,8 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
       for (int e = 0; e < V; ++e) rv[e] = 0.0f;
       if (a.f.res != nullptr) ldg_vec<V>(rv, a.f.res + (out - a.out) + j * step);
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = a.f.out(acc[e], rv[e]);
+      for (int e = 0; e < V; ++e)
+        acc[e] = a.f.template out<FUSED == kChan>(acc[e], rv[e], sv[e]);
     }
     store_floats<V>(out + j * step, acc);
   };
@@ -552,25 +605,25 @@ __device__ __forceinline__ void depthwise_body(const DwArgs<T>& a) {
 
 // V channels per thread (16 bytes, or 1), J outputs per run, KT taps;
 // FUSED: with the fused operands of DwArgs::f.
-template <int V, int J, int KT, bool FUSED>
+template <int V, int J, int KT, int FUSED>
 __global__ void __launch_bounds__(kDwThreads)
     depthwise_conv1d_fwd(const DwArgs<float> a) {
   depthwise_body<float, V, J, KT, FUSED>(a);
 }
 
-template <int V, int J, int KT, bool FUSED>
+template <int V, int J, int KT, int FUSED>
 __global__ void __launch_bounds__(kDwThreads)
     depthwise_conv1d_fwd_bf16(const DwArgs<bf16> a) {
   depthwise_body<bf16, V, J, KT, FUSED>(a);
 }
 
-template <int V, int J, int KT, bool FUSED>
+template <int V, int J, int KT, int FUSED>
 void launch_dw(const DwArgs<float>& a, dim3 grid, dim3 block,
                cudaStream_t st) {
   depthwise_conv1d_fwd<V, J, KT, FUSED><<<grid, block, 0, st>>>(a);
 }
 
-template <int V, int J, int KT, bool FUSED>
+template <int V, int J, int KT, int FUSED>
 void launch_dw(const DwArgs<bf16>& a, dim3 grid, dim3 block,
                cudaStream_t st) {
   depthwise_conv1d_fwd_bf16<V, J, KT, FUSED><<<grid, block, 0, st>>>(a);
@@ -610,7 +663,7 @@ DwPlan depthwise_plan(int elem_bytes, int B, int T_out, int C, int K,
   return plan;
 }
 
-template <typename T, int V, bool FUSED>
+template <typename T, int V, int FUSED>
 int launch_depthwise_v(DwArgs<T> a, const DwPlan& plan, int B,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -635,7 +688,7 @@ int launch_depthwise_v(DwArgs<T> a, const DwPlan& plan, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool FUSED>
+template <typename T, int FUSED>
 int launch_depthwise_f(const DwArgs<T>& a, const DwPlan& plan, int B,
                        void* stream) {
   constexpr int ch = 16 / sizeof(T);
@@ -671,8 +724,10 @@ int launch_depthwise(const T* x, const T* w, const T* bias, T* out, int B,
   }
   const DwPlan plan = depthwise_plan(sizeof(T), B, T_out, C, K, dilation,
                                      aligned);
-  if (fused != nullptr) return launch_depthwise_f<T, true>(a, plan, B, stream);
-  return launch_depthwise_f<T, false>(a, plan, B, stream);
+  if (fused == nullptr) return launch_depthwise_f<T, kPlain>(a, plan, B, stream);
+  if (fused->chan != nullptr)
+    return launch_depthwise_f<T, kChan>(a, plan, B, stream);
+  return launch_depthwise_f<T, kFused>(a, plan, B, stream);
 }
 
 // -- implicit GEMM (conv1d_fwd*, transpose_conv1d_fwd*) -----------------------
@@ -814,15 +869,17 @@ struct MmaBf16 {
   // FUSED: staged unrounded, in f32, in all of shared memory (SMEM
   // elements); the copy-out applies the output ops, each thread's residual
   // chunks read (16 bytes, coalesced) before its stores, then rounds once.
-  template <int A_RING, int SMEM, bool FUSED, class RowOff>
+  template <int A_RING, int SMEM, int FUSED, class RowOff>
   __device__ __forceinline__ void store(T* cs, const T* bias, int m0, int n0,
                                         int M, int N, bool vec, T* out,
-                                        const Fused<T>& f, RowOff row_off) {
+                                        const Fused<T>& f, int c0,
+                                        RowOff row_off) {
     constexpr int LDC = BN + 8;
     static_assert(BM * LDC <= A_RING, "C tile fits the A ring");
     if constexpr (FUSED) {
-      this->template store_fused<SMEM>(reinterpret_cast<float*>(cs), bias, m0,
-                                       n0, M, N, vec, out, f, row_off);
+      this->template store_fused<SMEM, FUSED == kChan>(
+          reinterpret_cast<float*>(cs), bias, m0, n0, M, N, vec, out, f, c0,
+          row_off);
       return;
     }
 #pragma unroll
@@ -858,11 +915,11 @@ struct MmaBf16 {
     }
   }
 
-  template <int SMEM, class RowOff>
+  template <int SMEM, bool CHAN, class RowOff>
   __device__ __forceinline__ void store_fused(float* cf, const T* bias, int m0,
                                               int n0, int M, int N, bool vec,
                                               T* out, const Fused<T>& f,
-                                              RowOff row_off) {
+                                              int c0, RowOff row_off) {
     constexpr int LDF = BN + 4;                  // floats per staged row
     constexpr int ITER = BM * BN / 8 / kThreads;  // 8-column chunks per thread
     static_assert(BM * LDF * sizeof(float) <= SMEM * sizeof(T) &&
@@ -887,6 +944,15 @@ struct MmaBf16 {
       }
     }
     __syncthreads();
+    // A thread's 8 columns are the same in every iteration (kThreads is a
+    // multiple of BN / 8): their constants once.
+    static_assert(kThreads % (BN / 8) == 0, "fixed columns per thread");
+    float s8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      s8[e] = CHAN ? f.chan_at(c0 + min(n0 + (threadIdx.x % (BN / 8)) * 8 + e,
+                                        N - 1))
+                   : 0.0f;
     float r[ITER][8];
 #pragma unroll
     for (int it = 0; it < ITER; ++it) {
@@ -911,7 +977,8 @@ struct MmaBf16 {
       if (m >= M || n >= N) continue;
       float v[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = f.out(cf[row * LDF + col + e], r[it][e]);
+      for (int e = 0; e < 8; ++e)
+        v[e] = f.template out<CHAN>(cf[row * LDF + col + e], r[it][e], s8[e]);
       T* dst = out + row_off(m) + n;
       if (vec) {
         store_floats<8>(dst, v);
@@ -980,17 +1047,22 @@ struct FfmaF32 {
   // out + row_off(m); FUSED: each through the output ops first (the
   // residual read in the same pieces).  With vec, N is a multiple of 4, so
   // a piece is wholly inside N or outside.
-  template <int A_RING, int SMEM, bool FUSED, class RowOff>
+  template <int A_RING, int SMEM, int FUSED, class RowOff>
   __device__ __forceinline__ void store(T* /*smem*/, const T* /*bias*/,
                                         int m0, int n0, int M, int N,
                                         bool vec, T* out, const Fused<T>& f,
-                                        RowOff row_off) {
+                                        int c0, RowOff row_off) {
     constexpr int P = TN < 4 ? TN : 4;
     const int n = n0 + tx * TN;
     if (n >= N) return;
     if constexpr (FUSED) {
-      // The output ops, the micro-tile's residual loaded first: a load
-      // after a store to `out` would wait for it.
+      // The output ops, the micro-tile's residual and its columns'
+      // constants loaded first: a load after a store to `out` would wait
+      // for it.
+      float s[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        s[j] = FUSED == kChan ? f.chan_at(c0 + min(n + j, N - 1)) : 0.0f;
       if (f.res != nullptr) {
         float r[TM][TN];
 #pragma unroll
@@ -1016,12 +1088,14 @@ struct FfmaF32 {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = f.out(acc[i][j], r[i][j]);
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = f.template out<FUSED == kChan>(acc[i][j], r[i][j], s[j]);
       } else {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = f.out(acc[i][j], 0.0f);
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = f.template out<FUSED == kChan>(acc[i][j], 0.0f, s[j]);
       }
     }
 #pragma unroll
@@ -1054,7 +1128,7 @@ struct FfmaF32 {
 // crop0 + u, u < T_out, so its phase z owns the kept rows u = j·s + z
 // (the result's rows t = crop0 + u, of tap phase (crop0 + z) mod s); all
 // threads share the side store first.
-template <class P, bool TCONV, bool FUSED>
+template <class P, bool TCONV, int FUSED>
 __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   using T = typename P::T;
   constexpr int BM = P::BM, BN = P::BN, BK = P::BK, NT = P::kThreads;
@@ -1244,31 +1318,31 @@ __device__ __forceinline__ void gemm_body(const GemmArgs<typename P::T>& a) {
   };
   math.template store<kStages * A_STAGE, kStages * (A_STAGE + B_STAGE),
                       FUSED>(smem, bias, m0, n0, M, N, a.vec, a.out, a.f,
-                             row_off);
+                             bias_off, row_off);
 }
 
 // f32: at least 3 blocks per SM (≤ 85 registers at 256 threads), so that
 // ptxas schedules the FFMA loop for that occupancy; on the card this ran
 // faster than without the hint.  FUSED: with GemmArgs::f's operands.
-template <int BM, int BN, int TM, int TN, bool FUSED>
+template <int BM, int BN, int TM, int TN, int FUSED>
 __global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
     conv1d_fwd(const GemmArgs<float> a) {
   gemm_body<FfmaF32<BM, BN, TM, TN>, false, FUSED>(a);
 }
 
-template <int BM, int BN, int TM, int TN, bool FUSED>
+template <int BM, int BN, int TM, int TN, int FUSED>
 __global__ void __launch_bounds__(BM / TM * (BN / TN), 3)
     transpose_conv1d_fwd(const GemmArgs<float> a) {
   gemm_body<FfmaF32<BM, BN, TM, TN>, true, FUSED>(a);
 }
 
-template <int BM, int BN, int WM, int WN, bool FUSED>
+template <int BM, int BN, int WM, int WN, int FUSED>
 __global__ void __launch_bounds__(kMmaThreads)
     conv1d_fwd_bf16(const GemmArgs<bf16> a) {
   gemm_body<MmaBf16<BM, BN, WM, WN>, false, FUSED>(a);
 }
 
-template <int BM, int BN, int WM, int WN, bool FUSED>
+template <int BM, int BN, int WM, int WN, int FUSED>
 __global__ void __launch_bounds__(kMmaThreads)
     transpose_conv1d_fwd_bf16(const GemmArgs<bf16> a) {
   gemm_body<MmaBf16<BM, BN, WM, WN>, true, FUSED>(a);
@@ -1281,7 +1355,7 @@ constexpr int kTileBN[] = {64, 64, 32, 32, 16};
 constexpr int kF32TM[] = {8, 4, 4, 4, 4};
 constexpr int kF32TN[] = {4, 4, 2, 2, 1};
 
-template <int TILE, bool TCONV, bool FUSED>
+template <int TILE, bool TCONV, int FUSED>
 int launch_gemm(const GemmArgs<float>& a, dim3 grid, cudaStream_t stream) {
   constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
   constexpr int TM = kF32TM[TILE], TN = kF32TN[TILE];
@@ -1294,7 +1368,7 @@ int launch_gemm(const GemmArgs<float>& a, dim3 grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TILE, bool TCONV, bool FUSED>
+template <int TILE, bool TCONV, int FUSED>
 int launch_gemm(const GemmArgs<bf16>& a, dim3 grid, cudaStream_t stream) {
   constexpr int BM = kTileBM[TILE], BN = kTileBN[TILE];
   constexpr int WM = BN == 16 ? 4 : 2, WN = BN == 16 ? 1 : 2;
@@ -1323,7 +1397,7 @@ int gemm_tile(int M, int N, int z) {
   return cand[n_cand - 1];
 }
 
-template <bool TCONV, bool FUSED, typename T>
+template <bool TCONV, int FUSED, typename T>
 int launch_gemm_tiled(const GemmArgs<T>& a, int M, int z, void* stream) {
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1345,7 +1419,7 @@ int launch_gemm_tiled(const GemmArgs<T>& a, int M, int z, void* stream) {
 template <bool TCONV, typename T>
 int launch_gemm_fused(GemmArgs<T> a, int M, int z, const FusedOps* fused,
                       void* stream) {
-  if (fused == nullptr) return launch_gemm_tiled<TCONV, false>(a, M, z, stream);
+  if (fused == nullptr) return launch_gemm_tiled<TCONV, kPlain>(a, M, z, stream);
   constexpr int ch = 16 / sizeof(T);
   if (fused->ld < fused->c_off + a.C_in ||
       (fused->state != nullptr && fused->T_s > a.T_in) ||
@@ -1358,7 +1432,9 @@ int launch_gemm_fused(GemmArgs<T> a, int M, int z, const FusedOps* fused,
   a.vec = a.vec && fused->ld % ch == 0 && fused->c_off % ch == 0 &&
           aligned16_or_null(fused->state) && aligned16_or_null(fused->res) &&
           !fused->leaky_in;
-  return launch_gemm_tiled<TCONV, true>(a, M, z, stream);
+  if (fused->chan != nullptr)
+    return launch_gemm_tiled<TCONV, kChan>(a, M, z, stream);
+  return launch_gemm_tiled<TCONV, kFused>(a, M, z, stream);
 }
 
 template <typename T>

@@ -9,25 +9,32 @@ its overlap-add tail); edge ops ahead of the multi-channel core form the
 prologue, the rest the epilogue.  The edges run through the executor's op
 interpreter (tflite/executor.py, cuDNN on the card).
 
-The core runs as a launch plan (`_plan`, built once from the graph in pure
-Python): one conv-stack kernel call (ops/conv_stack.py) per conv op, each
-with the ops it absorbs (`conv_stack.Fusion`), matched on dataflow:
+The core runs as a launch plan (`_build_plan`, built once from the graph in
+pure Python): one conv-stack kernel call (ops/conv_stack.py) per conv op,
+each with the ops it absorbs (`conv_stack.Fusion`), matched on dataflow:
 
   * input side: the CONCATENATION of a READ_VARIABLE with the conv's
-    input (two pointers), a SPLIT (a channel offset), and a LEAKY_RELU on
-    load where its input is not a core conv's output or has other
-    consumers (then every consumer applies it);
+    input (two pointers), a SPLIT or a STRIDED_SLICE of a channel range
+    (a channel offset), and a LEAKY_RELU on load where its input is not a
+    core conv's output or has other consumers (then every consumer applies
+    it);
   * output side: the residual ADD/SUB of a tensor already written (or its
-    LEAKY_RELU on load), a STRIDED_SLICE crop of a transpose conv, and a
-    LEAKY_RELU, in that graph order; a transpose conv whose sibling
-    absorbs their ADD/SUB writes only the rows the crop after it keeps;
+    LEAKY_RELU on load), a MUL or DIV by a per-channel constant, a
+    STRIDED_SLICE crop of a transpose conv, and a LEAKY_RELU, in graph
+    order; a transpose conv whose sibling absorbs their ADD/SUB writes only
+    the rows the crop after it keeps;
   * side store: STRIDED_SLICE → ASSIGN_VARIABLE of that concatenation, by
     the first launch that reads it;
-  * RESHAPE (same [T, C]) and READ_VARIABLE are views.
-Anything else in the core raises NotImplementedError naming the op.  On
-the card no torch kernel runs between the core's first launch and its
-last (the profiler span "fused_stack.core"); on CPU tensors each launch
-runs its plain version, the graph's torch ops in the graph's order.
+  * QUANTIZE, DEQUANTIZE (identity in float and bf16: the graph's int8
+    islands), RESHAPE (same [T, C]) and READ_VARIABLE are views.
+Each remaining ADD/SUB/MUL/DIV, CONCATENATION and STRIDED_SLICE is a call
+of a core kernel of its own (`CoreLaunch`: conv_stack.eltwise or
+conv_stack.gather, a gather also reading the STRIDED_SLICEs that only its
+CONCATENATION reads).  Anything else in the core raises
+NotImplementedError naming the op.  On the card no torch kernel runs
+between the core's first launch and its last (the profiler span
+"fused_stack.core"); on CPU tensors each launch runs its plain version,
+the graph's torch ops in the graph's order.
 `unfused` runs the whole graph op by op with only the convs on the
 kernels (the earlier design, the reference of the f32 bitwise check).
 
@@ -78,6 +85,9 @@ def _is_c1(shape: Sequence[int]) -> bool:
 
 
 _CONVS = ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")
+# Ops that pass their input on as the same [T, C] (QUANTIZE and DEQUANTIZE
+# are identity in float and bf16, as in the Pallas kernel).
+_VIEWS = ("RESHAPE", "QUANTIZE", "DEQUANTIZE")
 
 
 class FusedLaunch(NamedTuple):
@@ -104,6 +114,9 @@ class FusedLaunch(NamedTuple):
     leaky_out: Optional[float] = None
     crop: Optional[Tuple[int, int]] = None
     side: Optional[Tuple[str, int, int]] = None  # (state var, begin, rows)
+    chan: Optional[torch.Tensor] = None  # MUL/DIV constant, [O] or [1]
+    chan_op: str = "mul"
+    chan_pos: int = 0
     absorbed: Tuple[int, ...] = ()  # the graph ops it absorbs
 
     def fusion(self, state=None, res=None) -> conv_stack.Fusion:
@@ -113,7 +126,8 @@ class FusedLaunch(NamedTuple):
             state=state, split=self.split, leaky_in=self.leaky_in, res=res,
             res_op=self.res_op, res_leaky=self.res_leaky,
             leaky_out=self.leaky_out, crop=self.crop,
-            side=self.side and self.side[1:])
+            side=self.side and self.side[1:], chan=self.chan,
+            chan_op=self.chan_op, chan_pos=self.chan_pos)
 
     def __call__(self, x, state=None, res=None):
         """→ out, or (out, new state) for a launch with a side store."""
@@ -125,6 +139,48 @@ class FusedLaunch(NamedTuple):
         return conv_stack.fused_plain(conv_stack.PLAIN[self.kind], x, self.w,
                                       self.bias, self.extra,
                                       self.fusion(state, res))
+
+
+class CoreLaunch(NamedTuple):
+    """A core op that no conv launch absorbs, as one call of a core kernel
+    (conv_stack.eltwise or conv_stack.gather) on `[B, T, C]` tensors."""
+    op: int  # the op's index
+    kind: str  # "eltwise" or "gather"
+    kernel: cuda_build.KernelCounter
+    # eltwise: its two operands; gather: its parts as GatherPart fields;
+    # each tensor a core tensor's index or a constant
+    args: tuple
+    arg: object  # eltwise: "add", "sub", "mul" or "div"; gather: the axis
+    out: int  # the tensor written
+    out_shape: Tuple[int, int]
+    absorbed: Tuple[int, ...] = ()  # STRIDED_SLICEs a gather reads through
+
+    def operands(self, core: Dict[int, torch.Tensor]) -> tuple:
+        """The operands, the core's tensors given by `core`."""
+        def get(a):
+            return a if isinstance(a, torch.Tensor) else core[a]
+
+        if self.kind == "eltwise":
+            return tuple(get(a) for a in self.args)
+        return tuple(conv_stack.GatherPart(get(p[0]), *p[1:])
+                     for p in self.args)
+
+    def __call__(self, core):
+        ops = self.operands(core)
+        if self.kind == "eltwise":
+            return conv_stack.eltwise(*ops, self.arg)
+        return conv_stack.gather(ops, self.arg, _batch(ops))
+
+    def plain(self, core):
+        """The plain version: the graph's torch ops, on any device."""
+        ops = self.operands(core)
+        if self.kind == "eltwise":
+            return conv_stack.eltwise_plain(*ops, self.arg)
+        return conv_stack.gather_plain(ops, self.arg, _batch(ops))
+
+
+def _batch(parts) -> int:
+    return next(p.src.shape[0] for p in parts if p.src.dim() == 3)
 
 
 def _plain_call(launch: FusedLaunch) -> Callable:
@@ -267,10 +323,11 @@ class FusedStack:
 
     # -- the launch plan --------------------------------------------------------
     def _build_plan(self) -> None:
-        """`plan`: the core as fused launches, the conv-stack kernel calls
-        of one hop in graph order, with the kernel-layout weights on the
-        device in the graph's compute dtype; `roles`: every core op's one
-        role, "conv", "absorbed" or "view"."""
+        """`plan`: the core as the kernel calls of one hop in graph order —
+        a FusedLaunch per conv op, with the kernel-layout weights on the
+        device in the graph's compute dtype, and a CoreLaunch per op that
+        no conv launch absorbs; `roles`: every core op's one role, "conv",
+        "absorbed", "view" or "kernel" (a CoreLaunch of its own)."""
         sg, consts = self.sg, self._consts
         dev, dtype = self.device, self.graph.dtype
         core = set(self._core)
@@ -295,16 +352,22 @@ class FusedStack:
                 return None
             return i if name is None or sg.ops[i].name == name else None
 
+        def is_view(i):
+            op = sg.ops[i]
+            return op.name in _VIEWS and shape(op.inputs[0]) == shape(
+                op.outputs[0])
+
         def unview(t):
-            """t with the core's RESHAPEs of the same [T, C] looked through."""
-            while (i := op_of(t, "RESHAPE")) is not None:
-                src = sg.ops[i].inputs[0]
-                if shape(src) != shape(t):
+            """t with the core's views (QUANTIZE, DEQUANTIZE, RESHAPE of the
+            same [T, C]) looked through."""
+            while (i := op_of(t)) is not None and sg.ops[i].name in _VIEWS:
+                if not is_view(i):
                     raise NotImplementedError(
-                        f"fused stack: RESHAPE (op {i}) {shape(src)} → "
-                        f"{shape(t)} is not a view of [T, C]")
+                        f"fused stack: {sg.ops[i].name} (op {i}) "
+                        f"{shape(sg.ops[i].inputs[0])} → {shape(t)} is not a "
+                        f"view of [T, C]")
                 roles[i] = "view"
-                t = src
+                t = sg.ops[i].inputs[0]
             return t
 
         def only_consumer(t):
@@ -312,6 +375,25 @@ class FusedStack:
             if len(cons) != 1 or t == self.output_idx:
                 return None
             return cons[0] if cons[0] in core else None
+
+        def fwd(t):
+            """(the one core op that reads t, the tensor it reads), with the
+            views between looked through; None where there is no such op."""
+            while (c := only_consumer(t)) is not None and is_view(c):
+                roles[c] = "view"
+                t = sg.ops[c].outputs[0]
+            return None if c is None else (c, t)
+
+        def uses(t):
+            """(op, tensor it reads) of every op that reads t, through views."""
+            out = []
+            for c in consumers.get(t, []):
+                if c in core and is_view(c):
+                    roles[c] = "view"
+                    out += uses(sg.ops[c].outputs[0])
+                else:
+                    out.append((c, t))
+            return out
 
         def loadable(t):
             """(tensor, alpha) a launch reads for t: t itself once written
@@ -329,33 +411,199 @@ class FusedStack:
                     return src, sg.ops[i].options["alpha"]
             return None
 
-        def time_range(i):
-            """(begin, end) of a STRIDED_SLICE (op i) that cuts only the
-            time axis, else None."""
+        def window(i):
+            """((row0, rstride, rows), (col0, cstride, cols)) of the rows and
+            channels of [T, C] a STRIDED_SLICE (op i) keeps, else None."""
             op = sg.ops[i]
             full = sg.tensors[op.inputs[0]].shape
-            if len(full) != 4 or op.inputs[0] in consts:
+            if (op.inputs[0] in consts or len(full) not in (3, 4)
+                    or (len(full) == 4 and full[2] != 1) or any(
+                        op.options.get(m, 0) for m in (
+                            "shrink_axis_mask", "ellipsis_mask",
+                            "new_axis_mask"))):
                 return None
             idx = torch.arange(int(np.prod(full))).reshape(full)
             got = executor.strided_slice(
                 idx, consts[op.inputs[1]], consts[op.inputs[2]],
                 consts[op.inputs[3]], op.options, full)
-            lo = int(got.flatten()[0]) // int(np.prod(full[2:])) \
-                if got.numel() else 0
-            hi = lo + got.shape[1] if got.ndim == 4 else lo
-            if got.ndim != 4 or not torch.equal(got, idx[:, lo:hi]):
+            if got.numel() == 0 or got.ndim != len(full) or got.shape[0] != 1:
                 return None
-            return lo, hi
+            g = got.reshape(got.shape[1], got.shape[-1])
+            c_full = full[-1]
+            rows, cols = g[:, 0] // c_full, g[0] % c_full
+            axes = []
+            for v in (rows, cols):
+                step = int(v[1] - v[0]) if len(v) > 1 else 1
+                if step < 1 or not torch.equal(
+                        v, v[0] + step * torch.arange(len(v))):
+                    return None
+                axes.append((int(v[0]), step, len(v)))
+            if not torch.equal(g, rows[:, None] * c_full + cols[None, :]):
+                return None
+            return tuple(axes)
+
+        def time_range(i):
+            """(begin, end) of a STRIDED_SLICE (op i) that cuts only the
+            time axis, else None."""
+            w = window(i)
+            if w is None or w[0][1] != 1 or w[1] != (
+                    0, 1, shape(sg.ops[i].inputs[0])[1]):
+                return None
+            return w[0][0], w[0][0] + w[0][2]
+
+        def channel_range(i):
+            """(first channel, channels) of a STRIDED_SLICE (op i) that
+            keeps all rows and a run of channels, else None."""
+            w = window(i)
+            if w is None or w[0] != (0, 1, shape(sg.ops[i].inputs[0])[0]) \
+                    or w[1][1] != 1:
+                return None
+            return w[1][0], w[1][2]
 
         def as_t(a):
             return torch.tensor(np.ascontiguousarray(a, np.float32),
                                 device=dev).to(dtype)
 
+        def per_channel(t, c):
+            """Constant t as one value per channel ([c]) or one value ([1]),
+            else None."""
+            v = np.asarray(consts[t], np.float32)
+            if v.size == 1 or (v.size == c and v.shape[-1] == c):
+                return as_t(v.reshape(-1))
+            return None
+
+        def chan_of(cop, t):
+            """The constant of a MUL by a per-channel constant (either
+            operand) or of a DIV by one (the divisor), given the tensor t
+            it reads; None where cop is neither."""
+            if cop.name not in ("MUL", "DIV") or len(cop.inputs) != 2:
+                return None
+            k = cop.inputs.index(t)
+            other = cop.inputs[1 - k]
+            if other not in consts or (cop.name == "DIV" and k != 0):
+                return None
+            return per_channel(other, shape(t)[1])
+
         conv1d_k, depthwise_k, tconv_k = conv_stack.BY_DTYPE[dtype]
+        eltwise_k, gather_k = conv_stack.CORE_BY_DTYPE[dtype]
         read_state: Dict[int, str] = {
             op.outputs[0]: self._var_of_handle[op.inputs[0]]
             for i, op in enumerate(sg.ops)
             if i in core and op.name == "READ_VARIABLE"}
+
+        def state_cat(j):
+            """Whether CONCATENATION op j is a state ahead of an input along
+            time (a conv launch absorbs it, with its state slice)."""
+            cat = sg.ops[j]
+            return (_batch_axis(cat.options["axis"], len(
+                sg.tensors[cat.outputs[0]].shape)) == 1
+                and len(cat.inputs) == 2
+                and unview(cat.inputs[0]) in read_state)
+
+        def operand(t, i):
+            """Core tensor t as an operand of core kernel op i: the index of
+            its written source."""
+            u = unview(t)
+            if u not in written:
+                raise NotImplementedError(
+                    f"fused stack: the input of {sg.ops[i].name} (op {i}) is "
+                    f"not written before it")
+            return u
+
+        def own_slice(i) -> bool:
+            """Whether STRIDED_SLICE op i needs a gather of its own: not a
+            state slice, nor a slice a CONCATENATION's gather reads, nor a
+            channel range that only dense and transpose convs read (as a
+            channel offset)."""
+            use = fwd(sg.ops[i].outputs[0])
+            if use is not None and sg.ops[use[0]].name == "CONCATENATION" \
+                    and not state_cat(use[0]):
+                return False
+            j = op_of(unview(sg.ops[i].inputs[0]), "CONCATENATION")
+            if j is not None and state_cat(j):
+                return False
+            readers = uses(sg.ops[i].outputs[0])
+            return not (channel_range(i) is not None and readers and all(
+                sg.ops[c].name in ("CONV_2D", "TRANSPOSE_CONV")
+                for c, _ in readers))
+
+        def eltwise_launch(i) -> CoreLaunch:
+            """ADD/SUB/MUL/DIV (op i) of two core tensors of its output's
+            shape, or of one and a constant per channel or one constant."""
+            op = sg.ops[i]
+            out_shape = shape(op.outputs[0])
+            args = []
+            for t in op.inputs:
+                if t in consts:
+                    a = per_channel(t, out_shape[1])
+                    if a is None:
+                        raise NotImplementedError(
+                            f"fused stack: {op.name} (op {i}) by a constant "
+                            f"that is not one value per channel")
+                else:
+                    a = operand(t, i)
+                    if shape(a) != out_shape:
+                        raise NotImplementedError(
+                            f"fused stack: {op.name} (op {i}) broadcasts a "
+                            f"tensor")
+                args.append(a)
+            if all(isinstance(a, torch.Tensor) for a in args):
+                raise NotImplementedError(
+                    f"fused stack: {op.name} (op {i}) of two constants")
+            return CoreLaunch(i, "eltwise", eltwise_k, tuple(args),
+                              op.name.lower(), op.outputs[0], out_shape)
+
+        def gather_launch(i) -> CoreLaunch:
+            """A CONCATENATION (op i) along time or channels, each input a
+            written tensor, a constant, or a STRIDED_SLICE that only it
+            reads (absorbed); or a STRIDED_SLICE (op i) alone."""
+            op = sg.ops[i]
+            absorbed: List[int] = []
+            if op.name == "STRIDED_SLICE":
+                w = window(i)
+                if w is None:
+                    raise NotImplementedError(
+                        f"fused stack: STRIDED_SLICE (op {i}) is not a window "
+                        f"of [T, C] (slice masks, or the batch or width "
+                        f"axis)")
+                parts = [(operand(op.inputs[0], i), *w[0], *w[1])]
+                axis = 1
+            else:
+                nd = len(sg.tensors[op.outputs[0]].shape)
+                axis = {1: 1, nd - 1: 2}.get(
+                    _batch_axis(op.options["axis"], nd))
+                if axis is None or \
+                        len(op.inputs) > conv_stack.GATHER_MAX_PARTS:
+                    raise NotImplementedError(
+                        f"fused stack: CONCATENATION (op {i}) of "
+                        f"{len(op.inputs)} inputs along axis "
+                        f"{op.options['axis']}")
+                parts = []
+                for t in op.inputs:
+                    if t in consts:
+                        t_p, c_p = shape(t)
+                        parts.append((as_t(np.reshape(consts[t], (t_p, c_p))),
+                                      0, 1, t_p, 0, 1, c_p))
+                        continue
+                    u = unview(t)
+                    j = op_of(u, "STRIDED_SLICE")
+                    if (j is not None and j not in roles
+                            and (fwd(u) or (None,))[0] == i
+                            and (w := window(j)) is not None):
+                        roles[j] = "absorbed"
+                        absorbed.append(j)
+                        parts.append((operand(sg.ops[j].inputs[0], j),
+                                      *w[0], *w[1]))
+                    else:
+                        t_p, c_p = shape(t)
+                        parts.append((operand(t, i), 0, 1, t_p, 0, 1, c_p))
+                if all(isinstance(p[0], torch.Tensor) for p in parts):
+                    raise NotImplementedError(
+                        f"fused stack: CONCATENATION (op {i}) of constants")
+            return CoreLaunch(i, "gather", gather_k, tuple(parts), axis,
+                              op.outputs[0], shape(op.outputs[0]),
+                              tuple(absorbed))
+
         side_done: Set[int] = set()  # concatenations whose state is stored
         for i in self._core:  # tensors the core reads from outside
             for t in sg.ops[i].inputs:
@@ -366,10 +614,22 @@ class FusedStack:
                 elif t >= 0 and t == self.input_idx:
                     written.add(t)
         self._core_inputs = sorted(written)
-        plan: List[FusedLaunch] = []
+        plan: List = []
         for i in self._core:
             op = sg.ops[i]
             if op.name not in _CONVS:
+                if i in roles:
+                    continue
+                launch = None
+                if op.name in ("ADD", "SUB", "MUL", "DIV"):
+                    launch = eltwise_launch(i)
+                elif (op.name == "CONCATENATION" and not state_cat(i)) or (
+                        op.name == "STRIDED_SLICE" and own_slice(i)):
+                    launch = gather_launch(i)
+                if launch is not None:
+                    roles[i] = "kernel"
+                    written.add(launch.out)
+                    plan.append(launch)
                 continue
             opts = op.options
             x_t = op.inputs[2 if op.name == "TRANSPOSE_CONV" else 0]
@@ -384,7 +644,8 @@ class FusedStack:
             absorbed: List[int] = []
             in_shape = shape(x_t)
             f = {}
-            # Input side: SPLIT, CONCATENATION with a state, LEAKY on load.
+            # Input side: SPLIT or channel STRIDED_SLICE, CONCATENATION
+            # with a state, LEAKY on load.
             t = unview(x_t)
             if (j := op_of(t, "SPLIT")) is not None:
                 sp = sg.ops[j]
@@ -397,11 +658,18 @@ class FusedStack:
                 f["split"] = (sp.outputs.index(t) * width, width)
                 roles[j] = "view"
                 t = unview(src)
-            if (j := op_of(t, "CONCATENATION")) is not None:
+            elif (op.name != "DEPTHWISE_CONV_2D"
+                  and (j := op_of(t, "STRIDED_SLICE")) is not None
+                  and j not in roles
+                  and (cr := channel_range(j)) is not None):
+                f["split"] = cr
+                roles[j] = "view"
+                t = unview(sg.ops[j].inputs[0])
+            if (j := op_of(t, "CONCATENATION")) is not None \
+                    and roles.get(j) != "kernel":
                 cat = sg.ops[j]
                 parts = [unview(p) for p in cat.inputs]
-                if (_batch_axis(cat.options["axis"], 4) != 1
-                        or len(parts) != 2 or parts[0] not in read_state):
+                if not state_cat(j):
                     raise NotImplementedError(
                         f"fused stack: CONCATENATION (op {j}) is not a state "
                         f"ahead of an input along time")
@@ -411,17 +679,19 @@ class FusedStack:
                     side_done.add(j)
                     roles[j] = "absorbed"
                     absorbed.append(j)
-                    for c in consumers[t]:
-                        if sg.ops[c].name in _CONVS + ("SPLIT",):
+                    for c, _ in uses(t):
+                        if sg.ops[c].name in _CONVS + ("SPLIT",) \
+                                or roles.get(c) == "view":
                             continue
-                        asg = only_consumer(sg.ops[c].outputs[0])
+                        asg = fwd(sg.ops[c].outputs[0])
                         rows = (time_range(c)
                                 if sg.ops[c].name == "STRIDED_SLICE" else None)
                         if (rows is None or asg is None
-                                or sg.ops[asg].name != "ASSIGN_VARIABLE"):
+                                or sg.ops[asg[0]].name != "ASSIGN_VARIABLE"):
                             raise NotImplementedError(
                                 f"fused stack: {sg.ops[c].name} (op {c}) of "
                                 f"CONCATENATION (op {j}) is not a state slice")
+                        asg = asg[0]
                         name = self._var_of_handle[sg.ops[asg].inputs[0]]
                         if "side" in f or _mapped_shape(
                                 self._state_shapes[name])[0] != rows[1] - rows[0]:
@@ -440,21 +710,23 @@ class FusedStack:
             x, f["leaky_in"] = src
             if f["leaky_in"] is not None:
                 absorbed.append(producer[unview(t)])
-            # Output side: ADD/SUB, crop, LEAKY, in graph order.
+            # Output side: ADD/SUB, MUL/DIV by a per-channel constant, crop,
+            # LEAKY, in graph order.
             y = op.outputs[0]
-            while (c := only_consumer(y)) is not None:
+            while (use := fwd(y)) is not None:
+                c, yv = use
                 cop = sg.ops[c]
                 if cop.name in ("ADD", "SUB") and "res" not in f \
                         and "leaky_out" not in f:
-                    k = cop.inputs.index(y)
+                    k = cop.inputs.index(yv)
                     src = loadable(cop.inputs[1 - k])
                     if src is None:
                         # A sibling conv's operand, not written yet: it
                         # absorbs this op; keep only the rows it keeps.
-                        nxt = only_consumer(cop.outputs[0])
+                        nxt = fwd(cop.outputs[0])
                         if (op.name == "TRANSPOSE_CONV" and nxt is not None
-                                and sg.ops[nxt].name == "STRIDED_SLICE"
-                                and (rows := time_range(nxt)) is not None):
+                                and sg.ops[nxt[0]].name == "STRIDED_SLICE"
+                                and (rows := time_range(nxt[0])) is not None):
                             f["crop"] = rows
                             precrop[y] = rows
                         break
@@ -463,6 +735,10 @@ class FusedStack:
                         absorbed.append(producer[unview(cop.inputs[1 - k])])
                     f["res_op"] = ("add" if cop.name == "ADD"
                                    else "sub" if k == 0 else "rsub")
+                elif "chan" not in f and (ch := chan_of(cop, yv)) is not None:
+                    f["chan"], f["chan_op"] = ch, cop.name.lower()
+                    f["chan_pos"] = (2 if "leaky_out" in f
+                                     else 1 if "res" in f else 0)
                 elif (cop.name == "STRIDED_SLICE" and "crop" not in f
                       and op.name == "TRANSPOSE_CONV"
                       and (rows := time_range(c)) is not None):
@@ -559,6 +835,9 @@ class FusedStack:
             for name in self._core_state_names}
         with torch.profiler.record_function("fused_stack.core"):
             for launch in self.plan:
+                if isinstance(launch, CoreLaunch):
+                    core[launch.out] = launch(core)
+                    continue
                 y = launch(core[launch.x],
                            launch.state and states[launch.state],
                            core.get(launch.res))
@@ -579,7 +858,8 @@ class FusedStack:
         without fused operands, every other op a torch op."""
         env: Dict[int, torch.Tensor] = {self.input_idx: x.to(self.graph.dtype)}
         new_state = dict(state)
-        convs = {launch.op: _plain_call(launch) for launch in self.plan}
+        convs = {launch.op: _plain_call(launch) for launch in self.plan
+                 if isinstance(launch, FusedLaunch)}
         with self._edges():
             self.graph.run_ops(self._prologue + self._core + self._epilogue,
                                env, new_state, convs=convs)

@@ -831,3 +831,107 @@ def test_servers_sharing_an_engine_keep_their_own_state(cuda):
                     wire, received[t] & (sizes > 0), sizes)))
             for a, b in zip(*got):
                 np.testing.assert_array_equal(a, b, err_msg=f"pair {i} t {t}")
+
+
+# -- the islands fixture and the core kernels (ops/csrc/core_ops.cu) ---------
+
+ISLANDS = os.path.join(os.path.dirname(__file__), "golden",
+                       "synthetic_lyra_islands")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["full", "channel", "scalar"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div"])
+def test_core_eltwise_is_bitwise_its_plain_version(cuda, op, layout, dtype):
+    """core_eltwise vs torch's op (its plain version), either operand
+    first: bit for bit, one count per launch."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(300, 7, 24, device=cuda, generator=g).to(dtype)
+    b = torch.randn({"full": (300, 7, 24), "channel": (24,),
+                     "scalar": (1,)}[layout], device=cuda, generator=g)
+    b = (b + b.sign()).to(dtype)  # |b| ≥ 1: a divisor away from 0
+    kernel = conv_stack.CORE_BY_DTYPE[dtype][0]
+    for x, y in ((a, b), (b, a)) if layout != "full" else ((a, b),):
+        n = kernel.launches
+        got = conv_stack.eltwise(x, y, op)
+        assert kernel.launches == n + 1
+        assert torch.equal(got, conv_stack.eltwise_plain(x, y, op))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_core_gather_is_bitwise_its_plain_version(cuda, dtype):
+    """core_gather vs the slices and torch.cat: time and channel
+    concatenations, strided windows, a constant part; bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    src = torch.randn(300, 40, 64, device=cuda, generator=g).to(dtype)
+    other = torch.randn(300, 40, 12, device=cuda, generator=g).to(dtype)
+    const = torch.randn(40, 4, device=cuda, generator=g).to(dtype)
+    part = conv_stack.GatherPart
+    kernel = conv_stack.CORE_BY_DTYPE[dtype][1]
+    for parts, axis in (
+            ([part(src, 0, 2, 20, 0, 1, 64), part(src, 1, 2, 20, 0, 1, 64)], 1),
+            ([part(src, 0, 1, 40, 0, 1, 64), part(other, 0, 1, 40, 0, 1, 12),
+              part(const, 0, 1, 40, 0, 1, 4)], 2),
+            ([part(src, 3, 3, 12, 5, 2, 20)], 1)):
+        n = kernel.launches
+        got = conv_stack.gather(parts, axis, 300)
+        assert kernel.launches == n + 1
+        assert torch.equal(got, conv_stack.gather_plain(parts, axis, 300))
+
+
+@pytest.mark.parametrize("kind", ["conv1d", "depthwise", "tconv"])
+@pytest.mark.parametrize("pos", [0, 1, 2])
+@pytest.mark.parametrize("chan_op", ["mul", "div"])
+def test_fused_chan_f32_is_bitwise_unfused(cuda, kind, pos, chan_op):
+    """A MUL or DIV by a per-channel constant in a conv launch (the kChan
+    instances) gives the bits of the same kernel without it followed by the
+    graph's torch ops, at each position, per channel and one value."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(64, 12, 64, device=cuda, generator=g)
+    fn, plain_w, extra, oc = {
+        "conv1d": (conv_stack.conv1d, (3, 64, 48), (1,), 48),
+        "depthwise": (conv_stack.depthwise_conv1d, (3, 64), (3,), 64),
+        "tconv": (conv_stack.transpose_conv1d, (4, 64, 32), (2, 26), 32)}[kind]
+    w = torch.randn(plain_w, device=cuda, generator=g) * 0.2
+    bias = torch.randn(oc, device=cuda, generator=g)
+    y0 = fn(x, w, bias, *extra)
+    for n in (oc, 1):
+        chan = torch.rand(n, device=cuda, generator=g) + 0.5
+        fused = dict(res=torch.randn_like(y0), leaky_out=0.2, chan=chan,
+                     chan_op=chan_op, chan_pos=pos)
+        got = fn(x, w, bias, *extra, **fused)
+        want = conv_stack.fused_plain(
+            lambda xx, *_: fn(xx, w, bias, *extra), x, w, bias, extra,
+            conv_stack.Fusion(**fused))
+        assert torch.equal(got, want), n
+
+
+@pytest.mark.parametrize("name,shape", [("soundstream_encoder", (320,)),
+                                        ("lyragan", (1, 64))])
+def test_islands_fused_stack_on_card(cuda, name, shape):
+    """The full islands fixture: f32 bitwise equal to the unfused path and
+    within 1e-5 of the plain executor, bf16 within 3e-2 of the plain bf16
+    executor, 10 frames at B=8; the core kernels launch once per hop."""
+    path = os.path.join(ISLANDS, "full", f"{name}.tflite")
+    rng = np.random.default_rng(4)
+    for mode, bar in (("float", 1e-5), ("bf16", 3e-2)):
+        fused = FusedStack(path, mode=mode, device=cuda)
+        plain = load_graph(path, mode=mode, device=cuda)
+        fs = us = fused.init_state(8)
+        ps = plain.init_state(8)
+        before = [k.launches for k in conv_stack.KERNELS]
+        for _ in range(10):
+            x = _t(rng.normal(0, 0.1 if name != "lyragan" else 1.0,
+                              (8,) + shape), cuda)
+            y, fs = fused(fs, x)
+            o, ps = plain(ps, input_audio=x)
+            r = o["output_0"]
+            assert (y - r).abs().max() <= bar * r.abs().max()
+            if mode == "float":
+                u, us = fused.unfused(us, x)
+                assert torch.equal(y, u)
+                assert all(torch.equal(fs[k], us[k]) for k in us)
+        core = conv_stack.CORE_BY_DTYPE[fused.graph.dtype]
+        got = {k.name: k.launches - b
+               for k, b in zip(conv_stack.KERNELS, before) if k in core}
+        assert got == {core[0].name: 30, core[1].name: 20}

@@ -38,6 +38,10 @@ from lyra_tpu_torch.utils.state import state_from_numpy, state_to_numpy
 
 SMALL = os.path.join(os.path.dirname(__file__), "golden", "synthetic_lyra",
                      "small")
+# The same widths with int8 islands and the rest of K1's op set
+# (tests/golden/generate_synthetic_lyra_islands.py).
+ISLANDS = os.path.join(os.path.dirname(__file__), "golden",
+                       "synthetic_lyra_islands", "small")
 B, WARM, HOPS, NUM_BITS = 4, 10, 60, 120
 NQ = NUM_BITS // 4
 
@@ -67,10 +71,23 @@ def jax_engines():
 
 @pytest.fixture(scope="module")
 def jax_run(jax_engines):
+    return _jax_run(*jax_engines)
+
+
+_ISLANDS_RUN = []  # the islands fixture's JAX run, made once
+
+
+def _islands_run():
+    if not _ISLANDS_RUN:
+        _ISLANDS_RUN.append(_jax_run(JaxEncoder(16000, ISLANDS),
+                                     JaxDecoder(16000, ISLANDS)))
+    return _ISLANDS_RUN[0]
+
+
+def _jax_run(je, jd):
     """The JAX slice over HOPS ticks: the state after WARM ticks, then per
     tick the features, indices, DTX flags, audio, comfort-noise flags and
     decoder state."""
-    je, jd = jax_engines
     extract = jax.jit(je.soundstream.extract)
     audio, rec = _audio(0, HOPS), _received(HOPS)
     jes, jds = je.init_state(B), jd.init_state(B, seed=5)
@@ -88,10 +105,16 @@ def jax_run(jax_engines):
     return audio, rec, warm, ticks
 
 
-@pytest.mark.parametrize("backend", ["kernel", "plain"])
+@pytest.mark.parametrize("backend", ["kernel", "plain", "islands-kernel",
+                                     "islands-plain"])
 def test_slice_matches_jax_stage_by_stage(jax_run, backend):
-    te = EncoderEngine(16000, SMALL, backend=backend, device="cpu")
-    td = DecoderEngine(16000, SMALL, backend=backend, device="cpu")
+    """On the small fixture, and (backend "islands-…") on the small islands
+    fixture against the JAX engines on it."""
+    path = SMALL
+    if backend.startswith("islands-"):
+        path, backend, jax_run = ISLANDS, backend[8:], _islands_run()
+    te = EncoderEngine(16000, path, backend=backend, device="cpu")
+    td = DecoderEngine(16000, path, backend=backend, device="cpu")
     audio, rec, (jes, jds), ticks = jax_run
     assert _tree_shapes(state_to_numpy(te.init_state(B))) == _tree_shapes(jes)
     assert _tree_shapes(state_to_numpy(td.init_state(B, seed=5))) == \

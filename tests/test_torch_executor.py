@@ -310,11 +310,18 @@ def _code(path: str, name: str | None = None) -> str:
     ("tools/packet_loss.py", None),
     ("codec/preprocessor.py", None),
     ("dsp/utils.py", "convert_num_samples"),
+    ("tools/jitter_buffer.py", None),
+    ("tools/control_auth.py", None),
+    ("tools/udp_ingest.py", None),
+    ("tools/udp_egress.py", None),
+    ("dsp/buffered_resampler.py", None),
 ])
 def test_copied_modules_match_jax_package(module, name):
     """The framework-free modules the port copies are the JAX package's
     code statement for statement: only their docstrings and the package
-    name in their imports differ."""
+    name in their imports differ (the transport tier's jitter buffer,
+    control auth, ingest and egress, and the buffered resampler are whole
+    copies; of dsp/utils.py only convert_num_samples is)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert _code(os.path.join(repo, "lyra_tpu_torch", module), name) == \
         _code(os.path.join(repo, "lyra_tpu", module), name)
