@@ -165,6 +165,36 @@ Phases, one line each; any failed check raises and exits nonzero:
               of the plain path's) and bf16 at 48 kHz (phase 7's bars),
               device µs and CUDA kernels per replayed tick printed beside
               phases 6-7's on the plain fixture.
+ 13. fleet    the fleet tier (tools/fleet.py, fleet_main.py, client.py)
+              and the examples (lyra_tpu_torch/examples), float at 16 kHz:
+              (a) examples.drain_migrate at 3 and 64 callers in this process
+              (its exit code: post-migration audio bitwise the never-drained
+              run's); (b) two serve_main decode host processes at capacity
+              1024 (A active with periodic snapshots, B a warm standby;
+              keyed control, --echo reply) under `python -m
+              lyra_tpu_torch.tools.fleet_main --key`, 16 FleetCallers
+              admitted and streaming to A, the controller's migrate A → B,
+              every caller relocates and sends the cutover's datagrams as
+              one burst that fits B's jitter buffer (no late or overflow
+              drop allowed): B's PCM to each caller from B's first tick
+              after the restore must equal bit for bit an offline replay —
+              one DecoderServer on eager engines on the card restoring A's
+              drain snapshot and taking the same collects (phase 10's
+              method) — then the callers stream on and B plays them; each
+              host prints the launch counts of its own process at exit
+              (every f32 conv-stack kernel launched), the card's memory in
+              use per host and at the peak, the migrate's and the
+              restore's wall time; (c) examples.multihost_migrate
+              --controller, then --controller --failover (SIGKILL of A,
+              fleet_main's watchdog): each caller's longest audio gap
+              within the example's --max_gap_ms 1000, the cutover's wall
+              time and the hosts after it printed; (d) the other examples
+              in this process, each gated by its own exit code:
+              loopback_call, udp_call plain and --mixed, conference_call
+              (rooms of 2), rate_adapt_call (ADAPT OK, every stream walked
+              from 9200 to 3200).  Launch counts are reset before each
+              in-process example and read after it (every kernel of its
+              models launched).
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -456,12 +486,19 @@ def _core_kernels(fused, shape, scale, batch, dev):
     state = fused.init_state(batch)
     fused(state, x)  # warm-up: cuDNN's first calls
     torch.cuda.synchronize()
-    prof = _profile_ticks(lambda _: fused(state, x), n=1)
     cuda = torch.autograd.DeviceType.CUDA
-    dev_events = [e for e in prof.events()
-                  if getattr(e, "device_type", None) == cuda]
-    spans = [e for e in dev_events if e.name == CORE_SPAN]
-    check(len(spans) == 1, f"profiler: {len(spans)} device spans of the core")
+    # A window can lose the span's device record altogether (seen once on
+    # the card after phases 1-11); such a window checks nothing, so up to
+    # three are taken until one holds a span.
+    for window in range(1, 4):
+        prof = _profile_ticks(lambda _: fused(state, x), n=1)
+        dev_events = [e for e in prof.events()
+                      if getattr(e, "device_type", None) == cuda]
+        spans = [e for e in dev_events if e.name == CORE_SPAN]
+        if spans:
+            break
+    check(len(spans) == 1, f"profiler: {len(spans)} device spans of the core"
+          f" in {window} profiler windows")
     lo, hi = spans[0].time_range.start, spans[0].time_range.end
     inside = [e.name for e in dev_events if e is not spans[0]
               and lo <= e.time_range.start and e.time_range.end <= hi]
@@ -474,7 +511,8 @@ def _core_kernels(fused, shape, scale, batch, dev):
           f"{len(fused.plan)} launches")
     return (f"profiled eager hop at B={batch}: the core's span holds "
             f"{len(inside)} CUDA kernels, all conv-stack kernels, one per "
-            f"launch")
+            f"launch" + (f" (profiler window {window}: the earlier ones "
+                         f"recorded no span)" if window > 1 else ""))
 
 
 def _fused_calls(phase, fused, batch, dev, dtype, bar, stats, plans):
@@ -2060,16 +2098,25 @@ def _zero_launches():
         k.launches = 0
 
 
-def _float_path_launches(where):
-    """The launch counts since `_zero_launches`; every kernel of the float
-    path (the f32 K1 family and rvq_encode) must have launched."""
+def _launched(where, kernels):
+    """The launch counts since `_zero_launches`; each of `kernels` must
+    have launched."""
     from lyra_tpu_torch.ops import conv_stack, rvq_kernel
 
     counts = {k.name: k.launches
               for k in conv_stack.KERNELS + rvq_kernel.KERNELS}
-    for k in conv_stack.KERNELS_F32 + rvq_kernel.KERNELS:
-        check(counts[k.name] > 0, f"offline: {where} never launched {k.name}")
+    for k in kernels:
+        check(counts[k.name] > 0, f"{where} never launched {k.name}")
     return counts
+
+
+def _float_path_launches(where):
+    """`_launched` for every kernel of the float path (the f32 K1 family
+    and rvq_encode)."""
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    return _launched(f"offline: {where}",
+                     conv_stack.KERNELS_F32 + rvq_kernel.KERNELS)
 
 
 def _offline_models(path, dev):
@@ -2704,6 +2751,429 @@ def phase_islands(batch, dev, stats, gpu, plain_ticks):
     return launches, per_tick
 
 
+# ---- phase 13: the fleet tier and the examples ------------------------------
+
+FLEET_CALLERS = 16  # FleetCallers seated in (b)
+FLEET_DELAY = 4  # (b)'s hosts' playout delay
+FLEET_DEPTH = FLEET_DELAY + 6  # their jitter buffers' depth
+FLEET_TICKS = 50  # (b)'s uplink ticks to host A before the migration
+FLEET_CHECK = FLEET_DEPTH + FLEET_DELAY + 2  # (b)'s replayed ticks on B
+MULTIHOST_SECONDS = 3.0  # (c)'s --seconds_each
+# (b)'s hosts: serve_main.main, then the process's own launch counts and
+# peak device memory (torch.cuda.max_memory_allocated) at exit.
+_HOST = """\
+import json, sys, torch
+from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+from lyra_tpu_torch.tools import serve_main
+rc = serve_main.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({
+    "launches": {k.name: k.launches
+                 for k in conv_stack.KERNELS + rvq_kernel.KERNELS},
+    "peak": torch.cuda.max_memory_allocated()
+    if torch.cuda.is_available() else 0}))
+sys.exit(rc)
+"""
+
+
+def _run_example(name, argv, kernels):
+    """lyra_tpu_torch.examples.<name>.main(argv) in this process at its
+    default device (the card), launch counts set to 0 before and read
+    after; its exit code must be 0.  → its standard output."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"lyra_tpu_torch.examples.{name}")
+    _zero_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    out = buf.getvalue()
+    check(rc == 0, f"fleet: {name} {' '.join(argv)} exited {rc}:\n{out}")
+    counts = _launched(f"fleet: {name}", kernels or ())
+    flags = " ".join(a for a in argv if not a.startswith("/"))
+    print(f"fleet example {name} {flags}: ok in {time.time() - t0:.1f} s"
+          + (f", launches {({k.name: counts[k.name] for k in kernels})}"
+             if kernels else ""))
+    return out
+
+
+def _lines(out, *keys):
+    return [ln.strip() for ln in out.splitlines()
+            if any(k in ln for k in keys)]
+
+
+class _MemSampler:
+    """Device memory in use on the whole card (every process's), sampled
+    every 20 ms in a thread: `peak` over the run, `now()` on demand."""
+
+    def __init__(self):
+        import threading
+
+        import torch
+
+        self._torch = torch
+        self.peak = self.now()
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def now(self):
+        free, total = self._torch.cuda.mem_get_info()
+        return total - free
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.now())
+
+    def close(self):
+        self._stop.set()
+        self._th.join(5)
+
+
+def _spawn(argv, log):
+    return subprocess.Popen([sys.executable, "-c", _HOST, *argv],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+
+
+def _host_exit(path):
+    with open(path) as f:
+        lines = [ln for ln in f if ln.startswith("LAUNCHES ")]
+    check(lines, f"fleet: {path} holds no exit record")
+    return json.loads(lines[-1][len("LAUNCHES "):])
+
+
+def _fleet_burst(heads, next_seq, rng, least=4):
+    """The cutover's datagrams, as tests/test_torch_fleet.py sends them:
+    per seated slot the sequences from the caller's next one (or the
+    playout head) to the last the standby's jitter buffer holds, at least
+    `least` of them; random 15-byte packets."""
+    out = []
+    for slot in range(FLEET_CALLERS):
+        last = int(heads[slot]) + FLEET_DEPTH - 1
+        first = max(int(heads[slot]),
+                    min(int(next_seq[slot]), last + 1 - least))
+        out += [(slot, seq, rng.integers(0, 256, 15, dtype=np.uint8)
+                 .tobytes()) for seq in range(first, last + 1)]
+    return out
+
+
+def _fleet_replay(path, dev, snap, burst):
+    """The offline replay of (b)'s cutover on eager engines on the card:
+    one DecoderServer restores A's drain snapshot, a JitterBuffer takes
+    its playout schedule and the burst (phase 10's method) → FLEET_CHECK
+    ticks of int16 PCM [SERVE_CAP, 320]."""
+    from lyra_tpu_torch import config
+    from lyra_tpu_torch.codec.engine import DecoderEngine
+    from lyra_tpu_torch.tools.jitter_buffer import JitterBuffer
+    from lyra_tpu_torch.tools.stream_server import DecoderServer
+
+    dec = DecoderServer(SERVE_CAP, engine=_eager(DecoderEngine(
+        16000, path, emit_dtype="int16", max_bitrate=9200, device=dev)))
+    heads = dec.restore(snap)["jb_heads"]
+    jb = JitterBuffer(SERVE_CAP, config.packet_size(184), depth=FLEET_DEPTH)
+    for slot, head in enumerate(heads):
+        check(head >= 0, f"fleet: slot {slot} inactive in the drain snapshot")
+        jb.add_stream(slot, start_seq=int(head), playout_delay=FLEET_DELAY)
+    for slot, seq, payload in burst:
+        check(jb.insert(slot, seq, payload) == 0,
+              f"fleet: the burst's ({slot}, {seq}) does not fit the buffer")
+    out = []
+    for _ in range(FLEET_CHECK):
+        pkts, received, sizes = jb.collect()
+        out.append(dec.tick_wire(pkts, received, sizes.astype(np.int32)))
+    return out
+
+
+def _fleet_hosts(path, dev, tmp, gpu):
+    """(b): two serve_main decode hosts at SERVE_CAP (A active, B a warm
+    standby; keyed control, periodic snapshots, --echo reply) under the
+    port's fleet_main; FLEET_CALLERS FleetCallers admitted, streaming to
+    A; the controller's migrate A → B; every caller relocates and B's PCM
+    to it from B's first tick after the restore must be bitwise the
+    offline replay of A's drain snapshot."""
+    from lyra_tpu_torch.client import FleetCaller
+    from lyra_tpu_torch.examples._common import free_udp_port
+    from lyra_tpu_torch.ops import conv_stack
+    from lyra_tpu_torch.tools.control_auth import load_key
+    from lyra_tpu_torch.tools.fleet import HostControl
+    from lyra_tpu_torch.utils import checkpoint
+
+    key_file = os.path.join(tmp, "fleet.key")
+    with open(key_file, "wb") as f:
+        f.write(os.urandom(32))
+    key = load_key(key_file)
+    snap_dir = os.path.join(tmp, "fleet")
+    os.makedirs(snap_dir)
+    ports = {n: (free_udp_port(), free_udp_port()) for n in "AB"}
+    procs, logs, ctls, mem = {}, {}, {}, {}
+    mem_s = _MemSampler()
+    base = mem_s.now()
+    fleet = adm = None
+    callers = []
+    t_phase = time.time()
+    try:
+        for name, every in (("A", "2"), ("B", "3600")):
+            data, ctl = ports[name]
+            logs[name] = os.path.join(tmp, f"host_{name}.log")
+            procs[name] = _spawn(
+                ["--capacity", str(SERVE_CAP), "--seconds", "0",
+                 "--model_path", path, "--playout_delay", str(FLEET_DELAY),
+                 "--port", str(data), "--control", str(ctl),
+                 "--control_key", key_file, "--echo", "reply",
+                 "--snapshot", os.path.join(snap_dir, name),
+                 "--snapshot_every", every, "--report_every", "60",
+                 "--stats", os.path.join(tmp, f"host_{name}.jsonl")],
+                open(logs[name], "w"))
+            ctls[name] = HostControl(("127.0.0.1", ctl), key=key)
+            ctls[name].wait_ready(300)
+            deadline = time.time() + 300
+            while ctls[name].stats()["ticks"] < 3:  # its graphs captured
+                check(time.time() < deadline, f"fleet: host {name} stalls")
+                time.sleep(0.1)
+            mem[name] = mem_s.now() - base - sum(mem.values())
+        fport = free_udp_port()
+        flog = os.path.join(tmp, "fleet_main.log")
+        fleet = subprocess.Popen(
+            [sys.executable, "-m", "lyra_tpu_torch.tools.fleet_main",
+             "--host", f"A=127.0.0.1:{ports['A'][0]}:{ports['A'][1]}:"
+             f"{SERVE_CAP}",
+             "--standby", f"B=127.0.0.1:{ports['B'][0]}:{ports['B'][1]}:"
+             f"{SERVE_CAP}",
+             "--snapshot_dir", snap_dir, "--key", key_file,
+             "--port", str(fport), "--watch_every", "0", "--wait_ready",
+             "--report_every", "60", "--seconds", "0"],
+            stdout=open(flog, "w"), stderr=subprocess.STDOUT, cwd=REPO)
+        adm = HostControl(("127.0.0.1", fport), key=key)
+        deadline = time.time() + 120
+        while True:
+            try:
+                adm.request("stats", _timeout=0.5, _retries=1)
+                break
+            except (OSError, RuntimeError):
+                check(time.time() < deadline and fleet.poll() is None,
+                      f"fleet: fleet_main never came up: {_read(flog)}")
+        callers = [FleetCaller(("127.0.0.1", fport), f"caller{i}")
+                   for i in range(FLEET_CALLERS)]
+        check([c.host for c in callers] == ["A"] * FLEET_CALLERS
+              and sorted(c.slot for c in callers)
+              == list(range(FLEET_CALLERS)),
+              f"fleet: seats {[(c.host, c.slot) for c in callers]}")
+        rng = np.random.default_rng(13)
+        got = {c.slot: {} for c in callers}
+
+        def recv():
+            for c in callers:
+                for seq, payload in c.recv(256):
+                    got[c.slot][seq] = payload
+
+        def stream(ticks):
+            t_next = time.perf_counter()
+            for _ in range(ticks):
+                for c in callers:
+                    c.send_packet(rng.integers(0, 256, 15, dtype=np.uint8)
+                                  .tobytes())
+                t_next += 0.02
+                time.sleep(max(0.0, t_next - time.perf_counter()))
+                recv()
+
+        stream(FLEET_TICKS)
+        deadline = time.time() + 60
+        while not all(got.values()):  # a slow host's first ticks
+            check(time.time() < deadline,
+                  "fleet: a caller got no PCM from host A")
+            stream(5)
+        lo = ctls["B"].stats()["ticks"]
+        t0 = time.time()
+        moved = adm.request("migrate", src="A", dst="B")["moved"]
+        t_reply = time.time()
+        drain = os.path.join(snap_dir, "A.drain")
+        t_migrate = t_reply - t0
+        t_restore = t_reply - os.path.getmtime(drain + ".npz")
+        check(moved == FLEET_CALLERS, f"fleet: migrate moved {moved}")
+        heads = checkpoint.peek_extra(drain)["transport"]["jb_heads"]
+        # The callers re-resolve at once (the controller answers one poll
+        # of its socket every 10 ms), so B learns their reply routes
+        # before its first tick that plays a packet.
+        with ThreadPoolExecutor(FLEET_CALLERS) as pool:
+            moved_to = list(pool.map(lambda c: c.relocate() and c.host,
+                                     callers))
+        check(moved_to == ["B"] * FLEET_CALLERS,
+              f"fleet: callers did not move to B: {moved_to}")
+        next_seq = {c.slot: c.seq for c in callers}
+        burst = _fleet_burst(heads, [next_seq[s] for s in
+                                     range(FLEET_CALLERS)], rng)
+        by_slot = {c.slot: c for c in callers}
+        got = {c.slot: {} for c in callers}
+        for slot, seq, payload in burst:
+            by_slot[slot].seq = seq
+            by_slot[slot].send_packet(payload)
+        t_burst = time.perf_counter()
+        deadline = time.time() + 60
+        while min(len(g) for g in got.values()) < FLEET_CHECK + 2:
+            check(time.time() < deadline, "fleet: no PCM from host B")
+            recv()
+            time.sleep(0.01)
+        window = got
+        st_b = ctls["B"].stats()
+        check(st_b["jb"]["late_drops"] == st_b["jb"]["overflow_drops"] == 0,
+              f"fleet: host B dropped burst datagrams {st_b['jb']}")
+        # The call goes on at B: each caller's sequence has advanced with
+        # its clock (one per 20 ms) meanwhile; B locks onto it and plays
+        # every caller's packets (occupied = the seats).
+        for c in callers:
+            c.seq += round((time.perf_counter() - t_burst) / 0.02)
+        got = {c.slot: {} for c in callers}
+        stream(50)
+        st_on = ctls["B"].stats()
+        check(st_on["occupied"] == FLEET_CALLERS
+              and all(len(g) >= 25 for g in got.values()),
+              f"fleet: B does not play the callers' stream after the "
+              f"cutover: {st_on}, hops {[len(g) for g in got.values()]}")
+        t1 = time.time()
+        expected = _fleet_replay(path, dev, drain, burst)
+        check(max(np.abs(e[:FLEET_CALLERS]).max() for e in expected) > 1000,
+              "fleet: the replay's audio is not at speech level")
+        found = []
+        for t_0 in range(lo, lo + 20):
+            hops = [(s, q) for s, g in window.items() for q in g
+                    if t_0 <= q < t_0 + FLEET_CHECK]
+            if hops and all(window[s][q] == expected[q - t_0][s].tobytes()
+                            for s, q in hops):
+                found.append((t_0, len(hops)))
+        check(len(found) == 1,
+              f"fleet: B's PCM after the restore is not the replay's "
+              f"(matches {found}, B's ticks from {lo})")
+        # Every hop from B's first tick that plays a packet on was compared.
+        t_0 = found[0][0]
+        missing = [(s, t_0 + i) for s in window
+                   for i in range(FLEET_DELAY, FLEET_CHECK)
+                   if t_0 + i not in window[s]]
+        check(not missing, f"fleet: hops of B never reached their caller "
+              f"{missing[:8]} (B's ticks from {lo}, restore at {t_0})")
+        t_replay = time.time() - t1
+        for c in callers:
+            c.release()
+        t0 = time.time()
+        ctls["B"].restore(drain)
+        t_restore_b = time.time() - t0
+        adm.request("quit")
+        fleet.wait(60)
+        ctls["B"].quit()
+        procs["B"].wait(120)
+        procs["A"].wait(120)
+        peak = mem_s.peak - base
+        exits = {n: _host_exit(logs[n]) for n in "AB"}
+        launches = {n: {k: v for k, v in exits[n]["launches"].items() if v}
+                    for n in "AB"}
+        for n in "AB":
+            for k in conv_stack.KERNELS_F32:
+                check(launches[n].get(k.name, 0) > 0,
+                      f"fleet: host {n} never launched {k.name}")
+        print(f"fleet (b) [{gpu}]: ok, {FLEET_CALLERS} FleetCallers on two "
+              f"serve_main hosts at capacity {SERVE_CAP} under fleet_main "
+              f"(keyed), migrate A → B moved {moved} seats in "
+              f"{t_migrate * 1e3:.1f} ms (drain + restore; "
+              f"{t_restore * 1e3:.1f} ms from the drain snapshot's write to "
+              f"the reply: B's restore at its next tick boundary and the "
+              f"relay; a restore of the same snapshot on B alone "
+              f"{t_restore_b * 1e3:.1f} ms round trip); B's PCM to the "
+              f"callers bitwise the offline replay over the {FLEET_CHECK} "
+              f"ticks from its first after the restore (B tick "
+              f"{found[0][0]}): {found[0][1]} of {FLEET_CALLERS * FLEET_CHECK}"
+              f" hops reached their callers and were compared, each from "
+              f"the tick B learned the caller's reply route, every one from "
+              f"B's first tick that plays a packet (replay "
+              f"{t_replay:.1f} s), no late or overflow drop; then 50 ticks "
+              f"of the callers' stream "
+              f"played on B (occupied {st_on['occupied']}, jitter buffer "
+              f"{st_on['jb']}); peak device memory of host A "
+              f"{exits['A']['peak'] / 2**20:.0f} MiB, of host B "
+              f"{exits['B']['peak'] / 2**20:.0f} MiB (max_memory_allocated "
+              f"in each process); the card's memory in use with the hosts "
+              f"up: A {mem['A'] / 2**20:.0f} MiB, B {mem['B'] / 2**20:.0f} "
+              f"MiB (contexts and caches included), both at their peak "
+              f"{peak / 2**20:.0f} MiB; launches in host A "
+              f"{launches['A']}, in host B {launches['B']}; "
+              f"{time.time() - t_phase:.1f} s")
+    finally:
+        for c in callers:
+            c.close()
+        if adm is not None:
+            adm.close()
+        for ctl in ctls.values():
+            ctl.close()
+        for proc in [*procs.values()] + ([fleet] if fleet else []):
+            if proc.poll() is None:
+                proc.terminate()
+                proc.wait(30)
+        mem_s.close()
+
+
+def phase_fleet(path, dev, gpu):
+    """Phase 13: the fleet tier (tools/fleet.py, fleet_main.py, client.py)
+    and the examples (lyra_tpu_torch/examples) on the card at full width;
+    the hosts spawned here find the kernels phase 1 built."""
+    import tempfile
+
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.utils import native, wav
+
+    check(native.load() is not None, "fleet: the native library did not load")
+    full = conv_stack.KERNELS_F32 + rvq_kernel.KERNELS
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        speech = os.path.join(tmp, "speech.wav")
+        wav.write_wav_int16(speech, _speech(16000, 250).reshape(-1), 16000)
+        base = ["--model_path", path]
+        # (a) drain and migrate in one process, bitwise (its exit code).
+        for callers in ("3", "64"):
+            out = _run_example("drain_migrate", [
+                "--callers", callers, "--input", speech,
+                "--out_dir", os.path.join(tmp, "mig"), *base], full)
+            print("fleet (a): " + " | ".join(_lines(out, "mismatches")))
+        # (b) the fleet tier over two host processes.
+        _fleet_hosts(path, dev, tmp, gpu)
+        # (c) the live drain and the watchdog failover, three processes.
+        for extra in ([], ["--failover"]):
+            out = _run_example("multihost_migrate", [
+                "--controller", "--callers", "8", "--seconds_each",
+                str(MULTIHOST_SECONDS), "--max_gap_ms", "1000",
+                "--log_dir", os.path.join(tmp, "multihost"), *extra, *base],
+                None)
+            mode = "failover" if extra else "drain"
+            print(f"fleet (c) {mode} [{gpu}]: " + " | ".join(_lines(
+                out, "streams A→B", "caller", "hosts after", "MIGRATION")))
+        # (d) the other examples, short runs.
+        out = _run_example("loopback_call", [
+            "--seconds", "1", "--callers", "3", "--input", speech,
+            "--out_dir", os.path.join(tmp, "call"), *base], full)
+        for extra in ([], ["--mixed"]):
+            out = _run_example("udp_call", [
+                "--seconds", "1", "--callers", "3", "--loss", "0.1",
+                "--input", speech, "--out_dir", os.path.join(tmp, "udp"),
+                *extra, *base], full)
+            print("fleet (d) udp_call " + " ".join(extra) + ": "
+                  + " | ".join(_lines(out, "latency")))
+        out = _run_example("conference_call", [
+            "--seconds", "1", "--callers", "4", "--room_size", "2",
+            "--input", speech, "--out_dir", os.path.join(tmp, "conf"),
+            *base], full)
+        print("fleet (d) conference_call: " + " | ".join(_lines(
+            out, "downlink hops", "latency")))
+        out = _run_example("rate_adapt_call", [
+            "--callers", "4", "--seconds", "4", "--window_s", "0.4", *base],
+            conv_stack.KERNELS_F32[:2] + rvq_kernel.KERNELS)  # SoundStream
+        rates = [ln for ln in _lines(out, "window:")]
+        check("ADAPT OK" in out and "9200" in rates[0]
+              and all(f"s{s}:3200" in rates[-1] for s in range(4)),
+              f"fleet: rate_adapt_call did not walk 9200 → 3200:\n{out}")
+        print("fleet (d) rate_adapt_call: " + " | ".join(
+            [rates[0], rates[-1]] + _lines(out, "ADAPT", "converged")))
+    print(f"fleet: phase 13 took {time.time() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
@@ -2751,6 +3221,7 @@ def main(argv=None) -> int:
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
         per_tick[name] = per_tick.get(name, 0) + ticks[name]
+    phase_fleet(path, dev, gpu)
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
     # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs

@@ -813,11 +813,13 @@ class FusedStack:
         # algorithms sum with atomics: the same inputs then give other bits
         # from run to run (seen at B=1024 on an H100), and a CUDA-graph
         # replay other bits than an eager launch.  Only cuDNN's
-        # deterministic algorithms here, then; TF32 stays as the caller set
-        # it, and the plain executor (the reference) keeps cuDNN's choice.
+        # deterministic algorithms here, then, and no TF32: PyTorch allows
+        # TF32 in cuDNN by default, so a process that does not turn it off
+        # (a spawned serving host) would otherwise run the float edges at
+        # TF32 precision and give other bits than one that does.  The
+        # plain executor (the reference) keeps cuDNN's choice.
         return torch.backends.cudnn.flags(
-            enabled=True, deterministic=True,
-            allow_tf32=torch.backends.cudnn.allow_tf32)
+            enabled=True, deterministic=True, allow_tf32=False)
 
     def __call__(self, state: State, x: torch.Tensor):
         """x: [B, *graph_input_shape[1:]] → ([B, *graph_output_shape[1:]],

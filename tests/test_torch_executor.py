@@ -122,6 +122,33 @@ def test_fused_stack_partition_matches_jax():
         assert set(t.roles.values()) == {"conv", "absorbed", "view"}
 
 
+@pytest.mark.parametrize("name", MODELS)
+def test_fused_stack_edges_run_f32_whatever_the_process_allows(
+        name, monkeypatch):
+    """The cuDNN edges around the core (prologue and epilogue ops) run
+    with deterministic algorithms and TF32 off even in a process that
+    allows TF32 in cuDNN (PyTorch's default, and so every spawned serving
+    host's), so the same inputs give the same bits in every process; the
+    process's own setting is left as it was."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    t = FusedStack(os.path.join(SMALL, f"{name}.tflite"), device="cpu")
+    seen = []
+    run_ops = t.graph.run_ops
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cudnn.deterministic))
+        return run_ops(*args, **kwargs)
+
+    monkeypatch.setattr(t.graph, "run_ops", spy)
+    shape, scale = MODELS[name]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, scale, (2, *shape)).astype(np.float32))
+    t(t.init_state(2), x)
+    assert seen and set(seen) == {(False, True)}
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
 # Absorbed elementwise ops per graph: LEAKY_RELU, CONCATENATION, ADD, SUB.
 ABSORBED = {"soundstream_encoder": {"LEAKY_RELU": 22, "CONCATENATION": 13,
                                     "ADD": 9},
@@ -315,13 +342,17 @@ def _code(path: str, name: str | None = None) -> str:
     ("tools/udp_ingest.py", None),
     ("tools/udp_egress.py", None),
     ("dsp/buffered_resampler.py", None),
+    ("tools/fleet.py", None),
+    ("tools/fleet_main.py", None),
+    ("client.py", None),
 ])
 def test_copied_modules_match_jax_package(module, name):
     """The framework-free modules the port copies are the JAX package's
     code statement for statement: only their docstrings and the package
     name in their imports differ (the transport tier's jitter buffer,
-    control auth, ingest and egress, and the buffered resampler are whole
-    copies; of dsp/utils.py only convert_num_samples is)."""
+    control auth, ingest and egress, the buffered resampler, the fleet
+    tier (tools/fleet.py, tools/fleet_main.py) and the caller client are
+    whole copies; of dsp/utils.py only convert_num_samples is)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert _code(os.path.join(repo, "lyra_tpu_torch", module), name) == \
         _code(os.path.join(repo, "lyra_tpu", module), name)

@@ -47,7 +47,7 @@ _CHILD = textwrap.dedent("""
         lyra_tpu_torch.__path__, "lyra_tpu_torch.")]
     for name in modules:
         importlib.import_module(name)
-    assert len(modules) >= 52, modules
+    assert len(modules) >= 62, modules
     assert {f"lyra_tpu_torch.{m}" for m in (
         "utils.native", "tools.jitter_buffer", "tools.udp_ingest",
         "tools.udp_egress", "tools.control_auth", "tools.fleet",
@@ -56,7 +56,11 @@ _CHILD = textwrap.dedent("""
         "codec.decoder", "codec", "testing.fakes", "testing",
         "tools.packet_loss", "tools.cli_lib", "tools.encoder_main",
         "tools.decoder_main", "tools.batch_transcode", "tools.benchmark",
-        "tools.melspec_benchmark")} <= set(modules)
+        "tools.melspec_benchmark", "tools.fleet_main", "client",
+        "examples", "examples.drain_migrate", "examples.loopback_call",
+        "examples.udp_call", "examples.conference_call",
+        "examples.rate_adapt_call", "examples.multihost_migrate")} <= set(
+            modules)
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler

@@ -250,3 +250,130 @@ def test_melspec_benchmark_runs(capsys):
     assert melspec_benchmark.main(["--iters", "2"], **CPU) == 0
     out = capsys.readouterr().out
     assert out.count("frames/s") == 9 and "hop=  320 batch= 4096" in out
+
+
+# ---- the examples (lyra_tpu_torch/examples) ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def speech_wav(tmp_path_factory):
+    """A seeded 16 kHz wav the examples read through --input."""
+    path = str(tmp_path_factory.mktemp("examples") / "speech.wav")
+    wav.write_wav_int16(path, _wave(11, 16000, 16000), 16000)
+    return path
+
+
+def test_drain_migrate_and_loopback_examples(tmp_path, speech_wav, capsys):
+    """Mirror of tests/test_tools.py::test_examples_run_end_to_end: the
+    drain/migrate demo (whose own exit code asserts bitwise-equal
+    post-migration audio) and the loopback call (network simulation,
+    jitter buffer, PLC) complete at 1 caller and 4 + 4 ticks."""
+    from lyra_tpu_torch.examples import drain_migrate, loopback_call
+
+    assert drain_migrate.main(
+        ["--callers", "1", "--ticks_before_drain", "4", "--ticks_after", "4",
+         "--input", speech_wav, "--model_path", SMALL,
+         "--out_dir", str(tmp_path / "mig")], **CPU) == 0
+    assert "oracle: 0" in capsys.readouterr().out
+    assert len(wav.read_wav_int16(str(tmp_path / "mig" / "caller0.wav"))
+               .samples) == 8 * 320
+    assert loopback_call.main(
+        ["--callers", "1", "--seconds", "0.16", "--input", speech_wav,
+         "--model_path", SMALL, "--out_dir", str(tmp_path / "call")],
+        **CPU) == 0
+    assert len(wav.read_wav_int16(str(tmp_path / "call" / "caller0.wav"))
+               .samples) == 8 * 320
+
+
+@pytest.mark.parametrize("extra", [[], ["--mixed", "--callers", "3"],
+                                   ["--red", "1", "--loss", "0.3"]],
+                         ids=["plain", "mixed", "red"])
+def test_udp_call_example(tmp_path, speech_wav, capsys, extra):
+    """Mirror of tests/test_tools.py::test_udp_call_example (UDP datagrams
+    → jitter buffer → async wire decode reports a measured latency, every
+    hop matched on a lossless loopback; --mixed rides the per-row-bitrate
+    wire path), and --red over the per-datagram Python drain: the lost
+    datagrams' redundant copies heal holes."""
+    from lyra_tpu_torch.examples import udp_call
+
+    argv = ["--seconds", "0.4", "--callers", "2", "--loss", "0.0",
+            "--input", speech_wav, "--model_path", SMALL,
+            "--out_dir", str(tmp_path / "udp"), *extra]
+    assert udp_call.main(argv, **CPU) == 0
+    out = capsys.readouterr().out
+    assert "wire-send→playout latency" in out
+    callers = 3 if "--mixed" in extra else 2
+    assert (tmp_path / "udp" / f"caller{callers - 1}.wav").exists()
+    if "--red" in extra:
+        heals = int(out.split("red heals: ")[1].split()[0])
+        assert heals > 0 and "'late_drops': 0" in out
+    else:
+        assert "0 dropped" in out
+
+
+def test_conference_call_example(tmp_path, speech_wav, capsys):
+    """The bridge example end to end at 2 callers (one room): serve_main
+    --mode bridge in a thread, reply-routed downlink to each caller's own
+    socket; the listener hears the speaker (the example's own exit code),
+    and both callers got downlink."""
+    from lyra_tpu_torch.examples import conference_call
+
+    assert conference_call.main(
+        ["--seconds", "0.4", "--callers", "2", "--input", speech_wav,
+         "--model_path", SMALL, "--out_dir", str(tmp_path / "conf")],
+        **CPU) == 0
+    out = capsys.readouterr().out
+    for slot in range(2):
+        hops = int(out.split(f"caller {slot} (")[1].split("): ")[1].split()[0])
+        assert hops > 0, out
+    assert (tmp_path / "conf" / "caller1_downlink.wav").exists()
+
+
+def test_rate_adapt_example(capsys):
+    """Mirror of tests/test_tools.py::test_rate_adapt_example: an
+    oversubscribed token-bucket link drives the controller to walk the
+    fleet down the bitrate ladder through HostControl.set_bitrate until
+    the loss clears (the example's own exit code asserts convergence)."""
+    from lyra_tpu_torch.examples import rate_adapt_call
+
+    assert rate_adapt_call.main(["--callers", "2", "--seconds", "3",
+                                 "--window_s", "0.3", "--model_path", SMALL],
+                                **CPU) == 0
+    out = capsys.readouterr().out
+    assert "ADAPT OK" in out
+    assert "rates s0:9200 s1:9200" in out  # started high...
+    assert "rates s0:3200 s1:3200" in out  # ...converged low
+
+
+@pytest.mark.parametrize("name", [
+    "drain_migrate", "loopback_call", "udp_call", "conference_call",
+    "rate_adapt_call", "multihost_migrate"])
+def test_examples_need_the_card(name, tmp_path, monkeypatch):
+    """Without a card every example raises the port's no-card error (no
+    silent CPU run) before it builds an engine, opens a socket or spawns
+    a process; multihost_migrate also refuses device="cpu", as its hosts
+    run on the card only."""
+    import importlib
+    import subprocess
+
+    import torch
+
+    from lyra_tpu_torch.codec import engine
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the example went past its device check")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(subprocess, "Popen", forbidden)
+    monkeypatch.setattr(engine.DecoderEngine, "__init__", forbidden)
+    monkeypatch.setattr(engine.EncoderEngine, "__init__", forbidden)
+    mod = importlib.import_module(f"lyra_tpu_torch.examples.{name}")
+    argv = ["--model_path", SMALL]
+    if name == "multihost_migrate":
+        argv += ["--log_dir", str(tmp_path / "logs")]
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        mod.main(argv)
+    if name == "multihost_migrate":
+        with pytest.raises(ValueError, match="on the card"):
+            mod.main(argv, device="cpu")
+        assert not (tmp_path / "logs").exists()
