@@ -195,6 +195,29 @@ Phases, one line each; any failed check raises and exits nonzero:
               from 9200 to 3200).  Launch counts are reset before each
               in-process example and read after it (every kernel of its
               models launched).
+ 14. sharding multi-device serving (parallel/sharding.py) on a mesh of
+              two shards of cuda:0 (two shards on one card: the sharded
+              path's overhead, not multi-card scaling), and again over
+              cuda:0 and cuda:1 where two cards are attached: (a)
+              parallel/dryrun.py's dryrun_multichip(2); (b) encoder and
+              decoder ShardedEngines at 2 x 512 vs one engine at B=1024,
+              captured, 50 ticks of phase 6's loss pattern, float 16 kHz
+              and bf16 48 kHz, the decoders fed identical indices:
+              indices and comfort-noise flags bitwise, audio bitwise in
+              every hop without comfort noise in it and within 1 int16 LSB
+              in those with it (the noise estimator's and the comfort-noise
+              generator's cuBLAS matmuls pick their kernel by the row
+              count), launch counts reset before each run and read after
+              it (each shard launches every kernel of the path as often as
+              the one engine); (c) phase 9's server schedule over the
+              sharded float engines (wire bitwise, audio by (b)'s bar) and
+              a capacity-1024 bridge with rooms of 4 placed by
+              shard_affine_slots, 100 tick_wire ticks: the downlink bitwise
+              the unsharded bridge's in every room none of whose uplinks
+              has had comfort noise yet; (d) printed, not gated: the
+              captured server tick over one engine vs the sharded engines
+              in turns (wall p50/p99), device time and CUDA kernels per
+              replayed tick from the profiler, memory per card.
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -475,7 +498,9 @@ def _core_kernels(fused, shape, scale, batch, dev):
     step, which can lose device records): every CUDA kernel inside the
     core's span (CORE_SPAN, the record_function around the plan's
     launches, as the profiler places it on the device's timeline) must be
-    a conv-stack kernel, one per launch of the plan."""
+    a conv-stack kernel, one per launch of the plan.  A window is read
+    only once it holds the span and a record of every conv-stack launch
+    the wrappers counted in its hop (`_recorded`)."""
     import torch
 
     from lyra_tpu_torch.ops import conv_stack
@@ -487,18 +512,36 @@ def _core_kernels(fused, shape, scale, batch, dev):
     fused(state, x)  # warm-up: cuDNN's first calls
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    # A window can lose the span's device record altogether (seen once on
-    # the card after phases 1-11); such a window checks nothing, so up to
-    # three are taken until one holds a span.
-    for window in range(1, 4):
+    per_hop = []  # each window's conv-stack launches per hop
+
+    def profile(_):
+        before = sum(k.launches for k in conv_stack.KERNELS)
         prof = _profile_ticks(lambda _: fused(state, x), n=1)
+        # two hops: the profiler's warm-up step and the profiled one
+        per_hop.append((sum(k.launches for k in conv_stack.KERNELS)
+                        - before) / 2)
+        return prof
+
+    def records(prof):
         dev_events = [e for e in prof.events()
                       if getattr(e, "device_type", None) == cuda]
-        spans = [e for e in dev_events if e.name == CORE_SPAN]
-        if spans:
-            break
+        return dev_events, [e for e in dev_events if e.name == CORE_SPAN], [
+            e for e in dev_events
+            if any(_own(k, e.name) for k in conv_stack.KERNELS)]
+
+    def complete(prof):
+        _, spans, own = records(prof)
+        return len(spans) == 1 and len(own) == per_hop[-1]
+
+    prof, window = _recorded(profile, complete)
+    dev_events, spans, own = records(prof)
+    check(all(n == len(fused.plan) for n in per_hop),
+          f"K1 wrappers: {per_hop} launches per hop for {len(fused.plan)} "
+          f"launches in the plan")
     check(len(spans) == 1, f"profiler: {len(spans)} device spans of the core"
           f" in {window} profiler windows")
+    check(len(own) == per_hop[-1], f"profiler: {len(own)} conv-stack kernel "
+          f"records for {per_hop[-1]:g} launches in {window} windows")
     lo, hi = spans[0].time_range.start, spans[0].time_range.end
     inside = [e.name for e in dev_events if e is not spans[0]
               and lo <= e.time_range.start and e.time_range.end <= hi]
@@ -512,7 +555,7 @@ def _core_kernels(fused, shape, scale, batch, dev):
     return (f"profiled eager hop at B={batch}: the core's span holds "
             f"{len(inside)} CUDA kernels, all conv-stack kernels, one per "
             f"launch" + (f" (profiler window {window}: the earlier ones "
-                         f"recorded no span)" if window > 1 else ""))
+                         f"lost device records)" if window > 1 else ""))
 
 
 def _fused_calls(phase, fused, batch, dev, dtype, bar, stats, plans):
@@ -963,6 +1006,7 @@ def _device_us(prof):
 
 
 CORE_SPAN = "fused_stack.core"  # FusedStack's record_function
+PROFILE_WINDOWS = 5  # windows `_recorded` takes until one lost no record
 
 
 def _device_events(prof):
@@ -998,6 +1042,20 @@ def _core_split(prof):
         if any(a <= lo and hi <= b for a, b in spans):
             inside += hi - lo
     return inside, total
+
+
+def _recorded(profile, complete):
+    """`profile(w)` for profiler windows w = 0, 1, ... until
+    `complete(prof)`, at most PROFILE_WINDOWS.  A window now and then
+    loses device records (seen on the card: all of them, or the kernels
+    of its first few hundred µs), and such a window checks nothing; a
+    fault of the path shows in every window, and the checks after this
+    one read the last.  → (its profile, its number from 1)."""
+    for window in range(1, PROFILE_WINDOWS + 1):
+        prof = profile(window - 1)
+        if complete(prof):
+            break
+    return prof, window
 
 
 def _profile_ticks(tick, n=3):
@@ -1062,7 +1120,8 @@ def _unfused(engines):
 def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     """`ticks` ticks of the slice at `batch` through the fresh engines'
     captured `step`, every launch count set to 0 just before and read just
-    after, the last 3 ticks under torch.profiler.  A replay runs no
+    after, the last 3 ticks under torch.profiler (or, should that window
+    lose device records, 3 spare ticks after them).  A replay runs no
     wrapper, so the counts are those of the captures: one warm-up and two
     captures (ping-pong trees) of each step, 3 × the launches per tick,
     which the profiler counts in the replays.  Checks launches, kernel
@@ -1109,17 +1168,32 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     rms = out[10:].float().pow(2).mean().sqrt().item()
     check(300.0 <= rms <= 15000.0, f"main path: RMS {rms} not speech-level")
 
+    def spare(i):  # a tick after the run's, on its first inputs again
+        nonlocal es, ds
+        _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[i], received[i],
+                                num_bits)
+
+    def counts(prof):
+        events = _device_events(prof)
+        return {k.name: sum(c for n, (_, c) in events.items() if _own(k, n))
+                for k in kernels}
+
+    # The run's last 3 ticks; should that window lose device records, 3
+    # spare ticks after the run under the profiler again.
+    run_window = prof
+    prof, window = _recorded(
+        lambda w: run_window if w == 0 else _profile_ticks(spare),
+        lambda p: counts(p) == {k.name: launches[k.name] for k in kernels})
     events = _device_events(prof)
     check(bool(events), "profiler recorded no CUDA events")
     # Per tick, each of the path's kernels summed over its instances.
     per_tick = {k.name: sum(us for n, (us, _) in events.items() if _own(k, n))
                 / 3 for k in kernels}
-    counted = {k.name: sum(c for n, (_, c) in events.items() if _own(k, n))
-               for k in kernels}
+    counted = counts(prof)
     check(all(counted.values()), f"profiler: kernels missing {counted}")
     check(all(c % 3 == 0 and launches[n] == c for n, c in counted.items()),
           f"main path: launches {launches} are not 3 x the launches per "
-          f"replayed tick (profiler, 3 ticks: {counted})")
+          f"replayed tick (profiler, 3 ticks: {counted}; {window} windows)")
     per_tick_launches = {n: c // 3 for n, c in counted.items()}
     # Where an eager tick's device time goes: inside the two conv stacks'
     # cores, or elsewhere (DSP, PLC, comfort noise, masks, edges, copies).
@@ -1146,7 +1220,10 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
         f"captures of each step) { {k.name: launches[k.name] for k in kernels} }"
         f", per replayed tick (profiler) {per_tick_launches}, all CUDA "
         f"kernels per replayed tick {all_kernels:g}; device µs per "
-        f"captured tick (last 3 ticks): "
+        f"captured tick ("
+        + ("last 3 ticks" if window == 1 else f"profiler window {window}, 3 "
+           f"spare ticks: the earlier ones lost device records")
+        + "): "
         f"all {sum(us for us, _ in events.values()) / 3:.1f}, "
         + ", ".join(f"{n} {t:.1f}" for n, t in per_tick.items())
         + f"; over the {ticks} ticks {clocks.summary()}; an eager tick's "
@@ -1343,7 +1420,7 @@ def phase_timing(path, batch, dev, gpu):
 
 
 def _serve_run(enc_eng, dec_eng, pcm, received, asynchronous=False,
-               wires=None):
+               wires=None, cn_in=None):
     """Phase 9's schedule on a server pair over the engines: all streams
     admitted; SERVE_CHURN evicted at tick 10; SERVE_CHURN new ones admitted
     into their slots and SERVE_CHURN others evicted at tick 20; both
@@ -1352,7 +1429,8 @@ def _serve_run(enc_eng, dec_eng, pcm, received, asynchronous=False,
     tick_wire_async pipelines, the decoder fed the synchronous run's
     `wires`, outputs placed at the tick they belong to.  → per tick
     (wire, sizes, audio, comfort-noise flags) as numpy, and the slots
-    re-admitted at tick 20."""
+    re-admitted at tick 20; a synchronous run appends to a list `cn_in`
+    each tick's rows with comfort noise in the hop (phase 14)."""
     import tempfile
 
     from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
@@ -1397,9 +1475,12 @@ def _serve_run(enc_eng, dec_eng, pcm, received, asynchronous=False,
                 if t not in (0, 30):
                     outs[t - 1] = (*w, a, dec._last_comfort.copy())
             else:
+                pre = dec._state
                 wire, sizes = enc.tick_wire(pcm[t])
                 a = dec.tick_wire(wire, received[t] & (sizes > 0), sizes)
                 outs[t] = (wire, sizes, a, dec._last_comfort.copy())
+                if cn_in is not None:
+                    cn_in.append(_cn_enters(pre, dec._state))
         if asynchronous:
             outs[-1] = (*enc.flush_async(), dec.flush_async(),
                         dec._last_comfort.copy())
@@ -1546,8 +1627,12 @@ def _serve_config(path, batch, dev, gpu, rate, mode):
     span = _replay_span_ms(*cap_engines, batch, dev)
     device = {}
     for kind, servers in pairs.items():
-        prof = _profile_ticks(lambda i, servers=servers: _serve_ticks(
-            servers, pcm, received, 1, start=i))
+        prof, _ = _recorded(
+            lambda w, servers=servers: _profile_ticks(
+                lambda i: _serve_ticks(servers, pcm, received, 1,
+                                       start=4 * w + i)),
+            lambda p: all(any(_own(k, n) for n in _device_us(p))
+                          for k in kernels))
         dev_us = _device_us(prof)
         device[kind] = sum(dev_us.values()) / 3 / 1e3
         if kind == "captured":
@@ -3174,6 +3259,389 @@ def phase_fleet(path, dev, gpu):
     print(f"fleet: phase 13 took {time.time() - t_phase:.1f} s")
 
 
+# ---- phase 14: multi-device serving (parallel/sharding.py) ------------------
+
+SHARDS = 2  # phase 14: shards of each mesh
+BRIDGE_TICKS = 100  # phase 14 (c): bridge ticks
+BRIDGE_ROOM = 4  # phase 14 (c): participants per room
+SHARD_TIMED = 100  # phase 14 (d): timed server ticks per turn
+
+
+def _leaf(state, key):
+    """One [B] leaf of a decoder state tree, sharded or not, on the host."""
+    import torch
+
+    from lyra_tpu_torch.parallel.sharding import Sharded
+
+    if isinstance(state, Sharded):
+        return torch.cat([p[key].cpu() for p in state.parts])
+    return state[key].cpu()
+
+
+def _cn_enters(pre, post):
+    """[B] bool: the rows whose hop from decoder state `pre` to `post` has
+    comfort noise in it (the engine's run_cng: a fade toward it has begun,
+    or one away from it has not ended)."""
+    from lyra_tpu_torch.codec.engine import FADE_TO_CNG
+
+    return (_leaf(post, "fade_dir") == FADE_TO_CNG) | (_leaf(pre, "fade") != 0)
+
+
+def _vs_one_engine(where, got, ref, cn):
+    """Audio of the sharded path `got` vs one engine's `ref` ([B, hop] on
+    the host): bitwise in every row whose hop has no comfort noise in it,
+    within 1 int16 LSB where it has (`cn`): the decoder-side noise
+    estimator's and the comfort-noise generator's DFT matmuls are cuBLAS
+    GEMMs, whose bits depend on how many rows a call holds.  → (samples
+    that differ, the largest difference)."""
+    diff = (got.float() - ref.float()).abs()
+    quiet = diff[~cn]
+    check(not bool((quiet > 0).any()), f"{where}: {int((quiet > 0).sum())} "
+          f"samples differ in hops without comfort noise")
+    worst = float(diff.max())
+    check(worst <= 1.0, f"{where}: comfort-noise hops {worst} int16 LSB "
+          f"apart")
+    return int((diff > 0).sum()), worst
+
+
+def _sharded_ticks(enc, dec, audio, received, dec_in=None):
+    """TICKS captured ticks of `enc`/`dec` (sharded or not) at 120 bits;
+    the decoders take `dec_in` (the unsharded run's wire indices) where
+    given, else the device wire round trip of this run's own indices.
+    Launch counts are zeroed before and read after.  → (indices, decoder
+    input, audio, comfort-noise flags, rows with comfort noise in the hop)
+    per tick on the host, launches."""
+    import torch
+
+    from lyra_tpu_torch import packet
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    batch, bits = audio.shape[1], 120
+    nq = bits // 4
+
+    def host(x):  # a copy on the host, taken before the next replay
+        return x.cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+
+    es, ds = enc.init_state(batch), dec.init_state(batch)
+    got = []
+    _zero_launches()
+    for t in range(audio.shape[0]):
+        idx, _, es = enc.step(es, audio[t], nq)
+        idx = host(idx)
+        if dec_in is None:
+            d = idx.to(audio.device)
+            wire = packet.pack_wire_device(d, bits)
+            dev_idx = torch.full_like(d, -1)
+            dev_idx[:, :nq] = packet.unpack_wire_device(wire, bits)
+        else:
+            dev_idx = dec_in[t]
+        pre = ds  # valid through one more step (the capture's ping-pong)
+        out, cn, ds = dec.step(ds, dev_idx, received[t])
+        got.append((idx, dev_idx, host(out), host(cn), _cn_enters(pre, ds)))
+    launches = {k.name: k.launches
+                for k in conv_stack.KERNELS + rvq_kernel.KERNELS}
+    return got, launches
+
+
+def _row_dependence(enc, dec):
+    """Which ops of the tick give a row other bits at B=BATCH than in a
+    call over half the rows (each half run apart), on random inputs:
+    {op: bitwise?}.  Printed, not gated: it names where a sharded tick
+    may leave one engine's bits."""
+    import torch
+
+    from lyra_tpu_torch.dsp import utils as dsp_utils
+
+    dev, b = dec.device, BATCH
+    g = torch.Generator().manual_seed(14)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def rows(tree, lo, hi):
+        if isinstance(tree, dict):
+            return {k: rows(v, lo, hi) for k, v in tree.items()}
+        return tree[lo:hi].contiguous()
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in flat(v)]
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in flat(v)]
+        return [tree]
+
+    es, ds = enc.init_state(b), dec.init_state(b)
+    hop = rnd(b, 320, scale=3000.0)
+    ops = {
+        "SoundStream": (lambda s, x: enc.soundstream.extract(s, x),
+                        es["soundstream"], dsp_utils.int16_to_unit(hop)),
+        "RVQ search": (lambda f: enc.rvq.quantize(f, 30, method="kernel"),
+                       rnd(b, 64, scale=0.5)),
+        "LyraGAN": (lambda s, f: dec.gan.decode_hop(s, f), ds["gan"],
+                    rnd(b, 64, scale=0.5)),
+        "RVQ decode": (lambda i: dec.rvq.decode(i, dtype=dec._decode_dtype),
+                       torch.randint(0, 16, (b, 46), generator=g).to(dev)),
+        "noise estimator": (lambda s, h: dec.noise.receive_hop(s, h),
+                            ds["noise"], hop),
+        "comfort noise": (lambda s, f: dec.cng.generate_hop(s, f), ds["cng"],
+                          rnd(*ds["noise"]["noise_estimate"].shape,
+                              scale=0.3)),
+    }
+    out = {}
+    for name, (fn, *args) in ops.items():
+        whole = flat(fn(*args))
+        halves = [flat(fn(*[rows(a, lo, lo + b // 2) for a in args]))
+                  for lo in (0, b // 2)]
+        out[name] = all(torch.equal(w, torch.cat([x, y]))
+                        for w, x, y in zip(whole, *halves))
+    return out
+
+
+def _sharded_engines(path, mesh, rate, mode, gpu):
+    """Phase 14 (b): the encoder and decoder ShardedEngines over `mesh`
+    against one engine at the whole batch, captured, TICKS ticks of the
+    bring-up loss pattern; the decoders fed identical indices.  → the
+    engine pairs (unsharded, sharded) for (c)-(d)."""
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.parallel.sharding import ShardedEngine
+
+    dev = mesh.devices[0]
+    audio, received = _inputs(BATCH, TICKS, dev, rate // 50)
+
+    def engines():
+        return (EncoderEngine(rate, path, mode=mode, device=dev),
+                DecoderEngine(rate, path, mode=mode, device=dev))
+
+    one = engines()
+    sharded = tuple(ShardedEngine(e, mesh) for e in engines())
+    ref, n_one = _sharded_ticks(*one, audio, received)
+    got, n_sh = _sharded_ticks(*sharded, audio, received,
+                               [r[1] for r in ref])
+    kernels = _path_kernels(*one)
+    for k in kernels:
+        check(n_one[k.name] > 0 and n_sh[k.name] == SHARDS * n_one[k.name],
+              f"sharded {mode}: {k.name} launched {n_sh[k.name]} times over "
+              f"{SHARDS} shards, {n_one[k.name]} on one engine: not every "
+              f"shard captured it")
+    others = {n: c for n, c in n_sh.items()
+              if c and n not in {k.name for k in kernels}}
+    check(not others, f"sharded {mode}: kernels of another mode {others}")
+    differ = worst = cn_hops = 0
+    for t, ((i_r, _, o_r, c_r, m_r), (i_s, _, o_s, c_s, m_s)) in enumerate(
+            zip(ref, got)):
+        check(torch.equal(i_s, i_r), f"sharded {mode}: indices differ at "
+              f"tick {t} in {int((i_s != i_r).any(dim=1).sum())} rows")
+        check(torch.equal(c_s, c_r) and torch.equal(m_s, m_r),
+              f"sharded {mode}: comfort-noise flags differ at tick {t}")
+        n, w = _vs_one_engine(f"sharded {mode} tick {t}", o_s, o_r, m_r)
+        differ, worst, cn_hops = differ + n, max(worst, w), cn_hops + int(
+            m_r.sum())
+    out = torch.stack([g[2] for g in got])
+    check(out.shape == (TICKS, BATCH, rate // 50)
+          and bool(torch.isfinite(out).all()), f"sharded {mode}: output "
+          f"{tuple(out.shape)}")
+    ops = _row_dependence(*one)
+    print(f"sharding (b) {mode} {rate // 1000} kHz {mesh} [{gpu}]: ok, "
+          f"{SHARDS} x {BATCH // SHARDS} vs one engine at B={BATCH}, "
+          f"{TICKS} captured ticks, {1 - received.float().mean().item():.1%}"
+          f" of hops lost, {int(sum(g[3].sum() for g in got))} comfort-noise "
+          f"stream-hops, {cn_hops} stream-hops with comfort noise in them: "
+          f"encoder indices and comfort-noise flags bitwise, decoder audio "
+          f"bitwise outside comfort noise, {differ} samples of "
+          f"{TICKS * BATCH * (rate // 50)} differ (max {worst:g} int16 LSB, "
+          f"bar 1); each op at B={BATCH} vs over its two halves (random "
+          f"inputs): {', '.join(f'{k} ' + ('bitwise' if v else 'DIFFERS') for k, v in ops.items())}; "
+          f"launches over the runs (warm-up and two captures per "
+          f"step and cache) sharded "
+          f"{dict((k.name, n_sh[k.name]) for k in kernels)}, one engine "
+          f"{dict((k.name, n_one[k.name]) for k in kernels)}")
+    return one, sharded
+
+
+def _bridge_inputs(ticks, batch, seed=14):
+    """Uplink wire packets of three bitrates, one per stream, with ~10 %
+    loss and 8-tick bursts on every 16th stream."""
+    from lyra_tpu_torch import config, packet
+
+    rng = np.random.default_rng(seed)
+    bits = np.array([64, 120, 184])[np.arange(batch) % 3]
+    width = config.packet_size(184)
+    pkts = np.zeros((ticks, batch, width), np.uint8)
+    for t in range(ticks):
+        for b in (64, 120, 184):
+            rows = np.flatnonzero(bits == b)
+            idx = rng.integers(0, 16, (rows.size, b // 4)).astype(np.int32)
+            pkts[t, rows, :b // 8] = packet.pack_indices_batch(idx, b)
+    received = rng.random((ticks, batch)) >= 0.09
+    received[ticks // 2:ticks // 2 + 8, ::16] = False
+    sizes = np.broadcast_to(bits // 8, (ticks, batch)).astype(np.int32)
+    return pkts, received, sizes
+
+
+def _sharded_serving(one, sharded, mesh, gpu):
+    """Phase 14 (c): phase 9's server schedule (admissions, evictions, a
+    save and restore) and a conference bridge with shard-affine rooms over
+    the sharded float engines, against the same over one engine: wire
+    bytes bitwise, audio by `_vs_one_engine`'s bar; the bridge's downlink
+    bitwise in every room none of whose uplinks has had comfort noise in
+    it yet (a room's mix, and so its re-encoded downlink, carries the
+    comfort noise's last bits on)."""
+    import torch
+
+    from lyra_tpu_torch.tools.conference import ConferenceBridge
+
+    dev = mesh.devices[0]
+    audio, received = _inputs(BATCH, TICKS, dev)
+    pcm = audio.clamp(-32768, 32767).to(torch.int16).cpu().numpy()
+    received = received.cpu().numpy()
+    cn_r, cn_s = [], []
+    ref, re_r = _serve_run(*one, pcm, received, cn_in=cn_r)
+    got, re_s = _serve_run(*sharded, pcm, received, cn_in=cn_s)
+    check(re_r == re_s, "sharded serve: slot tables differ")
+    differ = 0
+    for t, (g_t, r_t) in enumerate(zip(got, ref)):
+        for name, g, r in zip(("wire", "sizes", "comfort noise"),
+                              (g_t[0], g_t[1], g_t[3]),
+                              (r_t[0], r_t[1], r_t[3])):
+            check(np.array_equal(g, r), f"sharded serve: {name} differs at "
+                  f"tick {t}")
+        check(torch.equal(cn_s[t], cn_r[t]), f"sharded serve: comfort-noise "
+              f"rows differ at tick {t}")
+        differ += _vs_one_engine(f"sharded serve tick {t}",
+                                 torch.from_numpy(g_t[2]),
+                                 torch.from_numpy(r_t[2]), cn_r[t])[0]
+    pkts, rec, sizes = _bridge_inputs(BRIDGE_TICKS, BATCH)
+    rooms = {i: i // BRIDGE_ROOM for i in range(BATCH)}
+    bridges = [ConferenceBridge(BATCH, dec_engine=d, enc_engine=e)
+               for e, d in (sharded, one)]
+    slots = bridges[0].shard_affine_slots(rooms)
+    per = BATCH // SHARDS
+    check(all(len({slots[s] // per for s in rooms if rooms[s] == r}) == 1
+              for r in set(rooms.values())), "shard_affine_slots split a room")
+    for b in bridges:
+        b.add_participants(rooms, slots=slots)
+    room_of = np.zeros(BATCH, np.int64)
+    for sid, slot in slots.items():
+        room_of[slot] = rooms[sid]
+    tainted = np.zeros(BATCH // BRIDGE_ROOM, bool)
+    rows_differ = 0
+    for t in range(BRIDGE_TICKS):
+        pre = bridges[1]._dec._state
+        (w_s, s_s), (w_r, s_r) = (b.tick_wire(pkts[t], rec[t], sizes[t])
+                                  for b in bridges)
+        tainted[room_of[_cn_enters(pre, bridges[1]._dec._state).numpy()]] = (
+            True)
+        same = (w_s == w_r).all(axis=1) & (s_s == s_r)
+        clean = ~tainted[room_of]
+        check(bool(same[clean].all()), f"sharded bridge: downlink differs at "
+              f"tick {t} in {int((~same & clean).sum())} rows of rooms "
+              f"without comfort noise")
+        rows_differ += int((~same).sum())
+    print(f"sharding (c) {mesh} [{gpu}]: ok, servers over the sharded float "
+          f"engines at capacity {BATCH}, {TICKS} ticks of phase 9's schedule "
+          f"(evictions, admissions, save + restore): wire, sizes and "
+          f"comfort-noise flags bitwise the unsharded servers', audio "
+          f"bitwise outside comfort noise ({differ} samples differ, each "
+          f"by 1 LSB at most); bridge at capacity {BATCH}, rooms of {BRIDGE_ROOM} placed "
+          f"by shard_affine_slots, {BRIDGE_TICKS} tick_wire ticks of 8/15/23-"
+          f"byte uplinks with ~10 % loss: downlink bitwise the unsharded "
+          f"bridge's in every room without comfort noise so far; "
+          f"{int(tainted.sum())} of {len(tainted)} rooms had some, "
+          f"{rows_differ} downlink rows of theirs differed over the run")
+
+
+def _sharded_timing(one, sharded, mesh, mode, gpu):
+    """Phase 14 (d), printed, not gated: captured server ticks over one
+    engine vs the sharded engines in turns, device time and CUDA kernels
+    per replayed tick, memory."""
+    import torch
+
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+
+    rate = one[0].sample_rate_hz
+    audio, received = _inputs(BATCH, TICKS, mesh.devices[0], rate // 50)
+    pcm = audio.clamp(-32768, 32767).to(torch.int16).cpu().numpy()
+    received = received.cpu().numpy()
+    cards = sorted(set(mesh.devices), key=str)
+    pairs, held = {}, {}
+    for kind, (e, d) in (("one engine", one), ("sharded", sharded)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = {c: torch.cuda.memory_allocated(c) for c in cards}
+        pairs[kind] = (EncoderServer(BATCH, engine=e, bitrate=6000),
+                       DecoderServer(BATCH, engine=d))
+        for srv in pairs[kind]:
+            srv.add_streams(range(BATCH))
+        _serve_ticks(pairs[kind], pcm, received, 3)
+        torch.cuda.synchronize()
+        held[kind] = {c: torch.cuda.memory_allocated(c) - base[c]
+                      for c in cards}
+    times = {kind: [] for kind in pairs}
+    peak = {kind: dict.fromkeys(cards, 0) for kind in pairs}
+    for kind in ("one engine", "sharded", "sharded", "one engine"):
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        _serve_ticks(pairs[kind], pcm, received, SHARD_TIMED, times[kind])
+        for c in cards:
+            peak[kind][c] = max(peak[kind][c],
+                                torch.cuda.max_memory_allocated(c))
+    device, kernels = {}, {}
+    for kind, servers in pairs.items():
+        events = _device_events(_profile_ticks(
+            lambda i, servers=servers: _serve_ticks(servers, pcm, received, 1,
+                                                    start=i)))
+        device[kind] = sum(us for us, _ in events.values()) / 3 / 1e3
+        kernels[kind] = sum(c for n, (_, c) in events.items()
+                            if not n.startswith(("Memcpy", "Memset"))) / 3
+    print(f"sharding (d) {mode} {rate // 1000} kHz {mesh} [{gpu}]: "
+          f"EncoderServer.tick_wire → DecoderServer.tick_wire at capacity "
+          f"{BATCH}, captured, {SHARD_TIMED} ticks per turn, turns one "
+          f"engine, sharded, sharded, one engine; " + "; ".join(
+              f"{kind} p50 {np.percentile(times[kind], 50):.3f} ms p99 "
+              f"{np.percentile(times[kind], 99):.3f} ms, device "
+              f"{device[kind]:.3f} ms per tick (profiler, 3 ticks), "
+              f"{kernels[kind]:g} CUDA kernels per replayed tick, memory "
+              f"held by the server pair "
+              + ", ".join(f"{c} {held[kind][c] / 2**20:.1f} MiB"
+                          for c in cards)
+              + ", peak allocated over its turns "
+              + ", ".join(f"{c} {peak[kind][c] / 2**20:.1f} MiB"
+                          for c in cards)
+              for kind in pairs))
+
+
+def phase_sharding(path, gpu):
+    """Phase 14: multi-device serving (parallel/sharding.py) on a mesh of
+    SHARDS shards of cuda:0, and again over cuda:0 … cuda:SHARDS-1 where
+    that many cards are attached."""
+    import torch
+
+    from lyra_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lyra_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.time()
+    meshes = [make_mesh(["cuda:0"] * SHARDS)]
+    if torch.cuda.device_count() >= SHARDS:
+        meshes.append(make_mesh([f"cuda:{i}" for i in range(SHARDS)]))
+    for mesh in meshes:
+        dryrun_multichip(SHARDS, devices=mesh.devices, model_path=path)
+        print(f"sharding (a) {mesh}: ok, dryrun_multichip({SHARDS}): one "
+              f"sharded encode → wire → decode tick and one bridge tick, 2 "
+              f"streams per shard, every state leaf on its shard's device")
+        for rate, mode in ((16000, "float"), (RATE_BF16, "bf16")):
+            one, sharded = _sharded_engines(path, mesh, rate, mode, gpu)
+            if mode == "float":
+                _sharded_serving(one, sharded, mesh, gpu)
+            _sharded_timing(one, sharded, mesh, mode, gpu)
+            del one, sharded
+            gc.collect()
+    print(f"sharding: phase 14 took {time.time() - t_phase:.1f} s "
+          f"({len(meshes)} mesh{'es' if len(meshes) > 1 else ''})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
@@ -3222,6 +3690,7 @@ def main(argv=None) -> int:
         launches[name] = launches.get(name, 0) + n
         per_tick[name] = per_tick.get(name, 0) + ticks[name]
     phase_fleet(path, dev, gpu)
+    phase_sharding(path, gpu)
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
     # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs

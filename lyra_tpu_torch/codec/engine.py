@@ -175,6 +175,15 @@ class _Compiled:
             return None
         return GraphCache(self.device, pool=self.graphs.pool)
 
+    def replica(self, device) -> "_Compiled":
+        """The same engine built anew on `device` (its weights loaded
+        there): a shard's engine in parallel/sharding.py."""
+        return type(self)(**self._ctor, device=device)
+
+    def _step_args(self, *args) -> tuple:
+        """`step`'s inputs as its program takes them."""
+        return args
+
     def _run(self, fn: Callable, key, state: State, *inputs,
              graphs: GraphCache | None = None):
         """`fn(state, *inputs) -> (*outputs, new_state)` as one replay of
@@ -222,6 +231,11 @@ class DecoderEngine(_Compiled):
             raise ValueError(
                 f"unknown feature_estimator {feature_estimator!r}; "
                 f"choose from {sorted(_ESTIMATORS)}")
+        self._ctor = dict(
+            sample_rate_hz=sample_rate_hz, model_path=model_path, mode=mode,
+            backend=backend, feature_estimator=feature_estimator,
+            max_bitrate=max_bitrate, gate_idle_stages=gate_idle_stages,
+            emit_dtype=emit_dtype)
         self.device = device = resolve(device)
         self.backend = backend
         self.sample_rate_hz = sample_rate_hz
@@ -362,6 +376,10 @@ class EncoderEngine(_Compiled):
                  boundary_store: str | None = None, *, device=None):
         backend = _checked_common(sample_rate_hz, model_path, backend, mode,
                                   state_compression, boundary_store)
+        self._ctor = dict(
+            sample_rate_hz=sample_rate_hz, model_path=model_path,
+            enable_dtx=enable_dtx, mode=mode, backend=backend,
+            max_bitrate=max_bitrate)
         self.device = device = resolve(device)
         self.backend = backend
         self.sample_rate_hz = sample_rate_hz
@@ -399,12 +417,17 @@ class EncoderEngine(_Compiled):
         bitrate; is_noise [B] bool; new_state).  A DTX noise hop leaves the
         stream's SoundStream state untouched (the host sends an empty
         packet)."""
+        return self._run(self._step_impl, "step", state,
+                         *self._step_args(audio, num_quantizers))
+
+    def _step_args(self, audio, num_quantizers) -> tuple:
+        """(audio, num_quantizers as [B] int32)."""
         b = int(audio.shape[0])
         if isinstance(num_quantizers, torch.Tensor):
             nq = num_quantizers.to(torch.int32).expand(b)
         else:
             nq = np.broadcast_to(np.asarray(num_quantizers, np.int32), (b,))
-        return self._run(self._step_impl, "step", state, audio, nq)
+        return audio, nq
 
     def _step_impl(self, state: State, audio: torch.Tensor,
                    num_quantizers: torch.Tensor):

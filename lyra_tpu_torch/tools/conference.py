@@ -34,8 +34,12 @@ accumulate in int32 (always exact, so the order of the device's atomic
 adds cannot change a bit) and saturate to int16 like the reference's
 ClipToInt16.
 
-Meshes are not ported: `num_shards` is 1, and `shard_affine_slots`
-refuses more than one shard.
+Over ShardedEngines (parallel/sharding.py) the mixer runs shard-locally:
+one mixer program per shard over its own rows, in that shard's graph
+cache, with no cross-shard sum (the JAX bridge's `shard_map` mixer).
+That is right only while no room straddles a shard, so the bridge checks
+it at every admission-table rebuild, and `shard_affine_slots` places
+rooms inside shards.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from lyra_tpu_torch import config
+from lyra_tpu_torch.parallel.sharding import shard_batch_tree
 from lyra_tpu_torch.tools.stream_server import (
     DecoderServer,
     EncoderServer,
@@ -61,7 +66,9 @@ from lyra_tpu_torch.utils import checkpoint
 def _mix_body(capacity: int):
     """The device mixer as a program of the bridge's graph cache:
     `body(state, pcm, exclude, rooms, active) -> (mix, state)` over an
-    empty state tree."""
+    empty state tree.  On a sharded bridge it runs per shard over that
+    shard's rows; room ids stay global dense ints (< capacity), so each
+    shard's segment table is over-provisioned rather than re-indexed."""
 
     def body(state, pcm, exclude, rooms, active):
         # pcm rows are integral int16-scale (engine clip_to_int16), so the
@@ -129,6 +136,20 @@ class ConferenceBridge:
                 f"uplink runs on {self._dec.engine.device} but the downlink "
                 f"on {self._enc.engine.device} — a bridge keeps its PCM on "
                 "one device")
+        # Multi-device: when the servers run ShardedEngines the mixer runs
+        # shard-local (no cross-shard sum), which requires room-affine
+        # placement — see shard_affine_slots / _check_rooms_shard_local.
+        self._mesh = getattr(self._dec.engine, "mesh", None)
+        enc_mesh = getattr(self._enc.engine, "mesh", None)
+        if (self._mesh is None) != (enc_mesh is None) or (
+                self._mesh is not None and enc_mesh != self._mesh):
+            raise ValueError(
+                "bridge servers must share one mesh: decoder engine mesh is "
+                f"{self._mesh}, encoder engine mesh is {enc_mesh}")
+        if self._mesh is not None and capacity % self._mesh.devices.size:
+            raise ValueError(
+                f"capacity {capacity} must divide evenly over the "
+                f"{self._mesh.devices.size}-device mesh")
         self.capacity = capacity
         self.sample_rate_hz = self._dec.sample_rate_hz
         self.hop_samples = self._dec.hop_samples
@@ -142,7 +163,8 @@ class ConferenceBridge:
         self._next_rid = 0
         self._dev_cache = None  # (active, rooms) device tensors
         self._pending_async = None  # in-flight tick_wire_async submit
-        # The mixer's graph cache (None where the engines run eagerly).
+        # The mixer's graph cache, one per shard on a mesh (None where the
+        # engines run eagerly).
         self._graphs = self._dec.engine.own_graphs()
         self._mixer = _mix_body(capacity)
 
@@ -188,7 +210,9 @@ class ConferenceBridge:
                         bitrate: Optional[int] = None,
                         slot: Optional[int] = None) -> int:
         """Admit a participant into `room`; returns their slot (the wire
-        header identity on both directions).  `slot` directs placement."""
+        header identity on both directions).  `slot` directs placement —
+        e.g. shard-affine room packing (`shard_affine_slots`) so a room
+        never straddles a mesh shard boundary."""
         slot = self._dec.add_stream(stream_id, slot=slot)
         try:
             slot_e = self._enc.add_stream(stream_id, bitrate=bitrate,
@@ -212,7 +236,7 @@ class ConferenceBridge:
                          ) -> Dict[object, int]:
         """Bulk admission (one masked state reset per server — use this for
         call-setup bursts, see DecoderServer.add_streams).  `slots` directs
-        placement per participant."""
+        placement per participant (see `shard_affine_slots`)."""
         ids = list(rooms_by_id)
         slots = self._dec.add_streams(ids, slots=slots)
         try:
@@ -232,41 +256,77 @@ class ConferenceBridge:
 
     @property
     def num_shards(self) -> int:
-        """Shards the slot axis splits into: always 1 in the port (meshes
-        are not ported)."""
-        return 1
+        """Mesh shards the slot axis splits into (1 when unsharded)."""
+        return 1 if self._mesh is None else int(self._mesh.devices.size)
 
     def shard_affine_slots(self, rooms_by_id: Dict[object, object],
                            num_shards: Optional[int] = None
                            ) -> Dict[object, int]:
-        """Directed-slot placement keeping every room inside one shard
-        (the JAX bridge's room-affine packing); the port serves one shard,
-        so this places rooms largest-first into free slots, and refuses
-        `num_shards` > 1.  All-or-nothing: raises without touching any
-        state if the joiners do not fit.  Feed the result to
+        """Directed-slot placement keeping every room inside one mesh shard.
+
+        The slot axis shards contiguously over the mesh (slot → shard is
+        `slot // (capacity // num_shards)`, parallel/sharding.py
+        batch_sharding), so a room whose members share a shard is mixed
+        entirely from shard-local rows — the invariant the shard-local
+        mixer requires.  Rooms with sitting members are pinned to their
+        shard; new rooms are placed largest-first into the emptiest shard.
+        All-or-nothing: raises without touching any state if a room cannot
+        fit inside a single shard (capacity fragmentation is the caller's
+        signal to spill the room to another bridge).  Feed the result to
         `add_participants(..., slots=...)`."""
         n = self.num_shards if num_shards is None else int(num_shards)
-        if n != 1:
-            raise NotImplementedError(
-                f"{n} shards: multi-GPU bridges are not ported yet; the "
-                "port's bridge serves one device")
-        free = [i for i, s in enumerate(self._dec._slots) if not s.active]
+        if self.capacity % n:
+            raise ValueError(
+                f"capacity {self.capacity} must divide over {n} shards")
+        per = self.capacity // n
+        free = [[] for _ in range(n)]
+        for i, s in enumerate(self._dec._slots):
+            if not s.active:
+                free[i // per].append(i)
+        pin: Dict[object, int] = {}
+        for sid, slot in self._dec._by_id.items():
+            room = self._room_of[sid]
+            sh = slot // per
+            if pin.setdefault(room, sh) != sh:
+                raise ValueError(
+                    f"room {room!r} already straddles shards "
+                    f"{pin[room]} and {sh}")
         groups: Dict[object, list] = {}
         for sid, room in rooms_by_id.items():
             groups.setdefault(room, []).append(sid)
-        if sum(len(g) for g in groups.values()) > len(free):
-            raise RuntimeError(
-                f"{len(rooms_by_id)} joiners do not fit in {len(free)} free "
-                "seats")
         out: Dict[object, int] = {}
-        sitting = {self._room_of[sid] for sid in self._dec._by_id}
-        order = ([r for r in groups if r in sitting]
-                 + sorted((r for r in groups if r not in sitting),
-                          key=lambda r: -len(groups[r])))
-        for room in order:
-            for sid in groups[room]:
-                out[sid] = free.pop(0)
+
+        def place(room, members, sh):
+            if len(free[sh]) < len(members):
+                raise RuntimeError(
+                    f"room {room!r}: {len(members)} joiners do not fit in "
+                    f"shard {sh} ({len(free[sh])} free seats)")
+            for sid in members:
+                out[sid] = free[sh].pop(0)
+
+        for room, members in groups.items():
+            if room in pin:
+                place(room, members, pin[room])
+        fresh = sorted((r for r in groups if r not in pin),
+                       key=lambda r: -len(groups[r]))
+        for room in fresh:
+            sh = max(range(n), key=lambda s: len(free[s]))
+            place(room, groups[room], sh)
         return out
+
+    def _check_rooms_shard_local(self) -> None:
+        """Fail loudly if any room's sitting members straddle a shard
+        boundary — the shard-local mixer would silently mis-mix them."""
+        per = self.capacity // self.num_shards
+        shard_of: Dict[object, int] = {}
+        for sid, slot in self._dec._by_id.items():
+            room = self._room_of[sid]
+            sh = slot // per
+            if shard_of.setdefault(room, sh) != sh:
+                raise ValueError(
+                    f"room {room!r} straddles mesh shards {shard_of[room]} "
+                    f"and {sh}; admit with slots=shard_affine_slots(...) so "
+                    "the shard-local mixer stays correct")
 
     def remove_participant(self, stream_id) -> None:
         self._dec.remove_stream(stream_id)
@@ -282,10 +342,15 @@ class ConferenceBridge:
 
     def _dev_tables(self):
         if self._dev_cache is None:
-            dev = self._dec.engine.device
-            self._dev_cache = (
-                torch.from_numpy(_active_mask(self._dec).copy()).to(dev),
-                torch.from_numpy(self._rooms.copy()).to(dev))
+            tables = (torch.from_numpy(_active_mask(self._dec).copy()),
+                      torch.from_numpy(self._rooms.copy()))
+            if self._mesh is not None:
+                self._check_rooms_shard_local()
+                self._dev_cache = tuple(shard_batch_tree(t, self._mesh)
+                                        for t in tables)
+            else:
+                dev = self._dec.engine.device
+                self._dev_cache = tuple(t.to(dev) for t in tables)
         return self._dev_cache
 
     def tick_wire(self, packets: np.ndarray, received: np.ndarray,

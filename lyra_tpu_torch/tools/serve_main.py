@@ -25,11 +25,12 @@ the same snapshot as machine-readable JSON lines for an operator
 `--mode encode` is the reverse relay (PCM in, packets out) and `--mode
 bridge` the conference MCU (tools/conference.py).  The engines take the
 default backend ("kernel") in float mode, as the JAX host's do.  The
-process runs on the card; `--devices` > 1 (multi-GPU) is not ported yet
-and is refused.  `main(argv, device="cpu")` runs it on the CPU (the
-tests); there is no flag for that.  The first ticks capture the CUDA
-graphs and stall the 20 ms pacer once, as the JAX host's first jit
-compile does.
+process runs on the card; `--devices N` shards the stream batch over the
+first N attached cards (parallel/sharding.py), and is refused when fewer
+are attached. `main(argv, device="cpu")` runs it on the CPU (the tests),
+where `--devices N` names the CPU N times; there is no flag for that.
+The first ticks capture the CUDA graphs and stall the 20 ms pacer once,
+as the JAX host's first jit compile does.
 
 Run:
 
@@ -381,14 +382,32 @@ def _make_tx(args, capacity: int, pump=None):
     return _PySender(args.echo)
 
 
+def _shard_devices(device, n_devices: int):
+    """The devices of --devices N on `device`'s kind: the first N attached
+    cards, refused when fewer are attached; on the CPU (the tests) the
+    CPU N times."""
+    if device.type != "cuda":
+        return [device] * n_devices
+    import torch
+
+    attached = torch.cuda.device_count()
+    if attached < n_devices:
+        raise ValueError(
+            f"--devices={n_devices} but only {attached} are attached")
+    return [torch.device("cuda", i) for i in range(n_devices)]
+
+
 def _maybe_shard(engine, n_devices: int):
-    """The engine for --devices: one device serves it as it is.  The JAX
-    host wraps it for stream-axis sharding over N devices; multi-GPU
-    sharding is not ported (main() refuses --devices > 1 up front)."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            "multi-GPU serving (--devices > 1) is not ported yet")
-    return engine
+    """Wrap the engine for stream-axis sharding over the first N devices
+    (--devices).  ShardedEngine is a drop-in at every server seam, so the
+    serving loop is unchanged; capacity divisibility is checked by the
+    engine's init_state."""
+    if n_devices <= 1:
+        return engine
+    from lyra_tpu_torch.parallel.sharding import ShardedEngine, make_mesh
+
+    return ShardedEngine(engine, make_mesh(
+        _shard_devices(engine.device, n_devices)))
 
 
 def _parse_adaptive(spec: str):
@@ -599,8 +618,21 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.tools.conference import ConferenceBridge
 
+    if args.devices > 1:
+        # Consecutive rooms stay shard-local iff rooms tile the per-shard
+        # seat count; refuse up front rather than at the first tick
+        # (ConferenceBridge._check_rooms_shard_local), since here the wire
+        # header's slot field is the stream identity and re-placing rooms
+        # would break it.
+        per = args.capacity // args.devices
+        if args.capacity % args.devices or per % args.room_size:
+            raise ValueError(
+                f"--capacity={args.capacity} in rooms of {args.room_size} "
+                f"does not tile {args.devices} shards of {per} seats; pick "
+                "capacity = devices * k * room_size")
     # Engines are built here (not left to the bridge's defaults) so
-    # --max_bitrate caps the captured programs.
+    # --max_bitrate caps the captured programs identically at every
+    # --devices count.
     dec_e = _maybe_shard(
         DecoderEngine(model_path=args.model_path,
                       max_bitrate=args.max_bitrate,
@@ -915,13 +947,11 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
                    help="bridge mode: participants per room (slots are "
                         "partitioned consecutively).")
     p.add_argument("--devices", type=int, default=1,
-                   help="Cards to shard the stream batch over.  1 = one "
-                        "card; multi-GPU sharding is not ported yet, so "
-                        "N > 1 is refused.")
+                   help="Shard the stream batch over the first N attached "
+                        "cards (stream-axis mesh, no cross-card traffic "
+                        "in the frame path; bridge rooms must tile the "
+                        "per-shard seats).  1 = one card.")
     args = p.parse_args(argv)
-    if args.devices != 1:
-        p.error(f"--devices {args.devices}: multi-GPU serving is not ported "
-                "to lyra_tpu_torch yet; serve one card (--devices 1)")
 
     # Trust boundary, enforced at startup (before any socket binds):
     # loopback control stays keyless; routable control requires the key.
@@ -1001,6 +1031,8 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
                         f"{args.red + 1} (a shrink below it would play "
                         "sequences before their redundant copy can land)")
     args._device = resolve(device)
+    if args.devices > 1:  # refused before any engine is built
+        _shard_devices(args._device, args.devices)
     if args.mode == "encode":
         return _serve_encode(args, _on_ready, _stop)
     if args.mode == "bridge":

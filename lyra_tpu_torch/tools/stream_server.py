@@ -30,7 +30,11 @@ into pinned buffers of the same slot right after the replay, on the same
 stream, before the next replay can overwrite them; an event marks them
 done.  A synchronous tick waits for the event at once; the async ticks
 (`tick_*_async`) return the previous tick's outputs after waiting for its
-event, so device compute, the copies and host work overlap.  The
+event, so device compute, the copies and host work overlap.  Over a
+ShardedEngine (parallel/sharding.py) every seam takes the sharded tree
+and outputs: each shard's outputs are copied into its row block of one
+pinned buffer, with an event per shard, and a snapshot holds the
+unsharded layout.  The
 generation counters make a slot that changed hands between submit and
 drain drain silence.  The host batch codecs (lyra_tpu_torch/packet.py)
 run through the native library when it builds, as the JAX servers' do;
@@ -50,6 +54,11 @@ import torch
 
 from lyra_tpu_torch import config, packet
 from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+from lyra_tpu_torch.parallel.sharding import (
+    Sharded,
+    shard_batch_tree,
+    unshard_batch_tree,
+)
 from lyra_tpu_torch.utils import checkpoint, native
 from lyra_tpu_torch.utils.state import state_from_numpy
 
@@ -65,8 +74,9 @@ def _pcm_in(audio):
     over PCIe; the engine casts on device), anything else is float32 (the
     float contract: non-integral int16-scale values are legal).  The
     private copy the async ticks need is made when the tick stages it
-    (`_HostIO.stage`).  Device tensors pass through."""
-    if isinstance(audio, torch.Tensor) and audio.device.type != "cpu":
+    (`_HostIO.stage`).  Device tensors (sharded or not) pass through."""
+    if isinstance(audio, Sharded) or (isinstance(audio, torch.Tensor)
+                                      and audio.device.type != "cpu"):
         return audio
     a = np.asarray(audio)
     return a if a.dtype == np.int16 else a.astype(np.float32)
@@ -79,7 +89,7 @@ class _HostIO:
     def __init__(self, device: torch.device):
         self._cuda = device.type == "cuda"
         self._bufs: Dict[tuple, torch.Tensor] = {}
-        self._events: List[Optional[torch.cuda.Event]] = [None, None]
+        self._events: List[List[torch.cuda.Event]] = [[], []]
         self._ticks = 0
 
     def _buf(self, key, shape, dtype) -> torch.Tensor:
@@ -94,13 +104,15 @@ class _HostIO:
         done."""
         k = self._ticks % 2
         self._ticks += 1
-        if self._events[k] is not None:
-            self._events[k].synchronize()
-            self._events[k] = None
+        for ev in self._events[k]:
+            ev.synchronize()
+        self._events[k] = []
         return k
 
     def stage(self, k: int, i: int, a):
         """Host input i of slot k's tick as a tensor the program copies."""
+        if isinstance(a, Sharded):
+            return a
         if isinstance(a, torch.Tensor):
             if a.device.type != "cpu":
                 return a
@@ -114,23 +126,36 @@ class _HostIO:
         return buf
 
     def fetch(self, k: int, outs):
-        """Enqueue the outputs' copies to the host; → (event, host tensors)."""
+        """Enqueue the outputs' copies to the host; → (events, host
+        tensors).  A sharded output's parts land in their row blocks of
+        one buffer, each shard's copies followed by an event on its own
+        card's stream."""
         if not self._cuda:
-            return None, list(outs)
-        host = []
+            return [], [unshard_batch_tree(t) if isinstance(t, Sharded)
+                        else t for t in outs]
+        host, shards = [], {}
         for j, t in enumerate(outs):
             buf = self._buf((k, "out", j), t.shape, t.dtype)
-            buf.copy_(t, non_blocking=True)
+            parts = t.parts if isinstance(t, Sharded) else (t,)
+            lo = 0
+            for s, p in enumerate(parts):
+                hi = lo + int(p.shape[0])
+                buf[lo:hi].copy_(p, non_blocking=True)
+                shards[s] = p.device
+                lo = hi
             host.append(buf)
-        ev = self._events[k] = torch.cuda.Event()
-        ev.record()
-        return ev, host
+        evs = self._events[k] = []
+        for dev in shards.values():
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            evs.append(ev)
+        return evs, host
 
     @staticmethod
     def result(fetched) -> List[np.ndarray]:
         """Wait for a fetch; its outputs as private numpy arrays."""
-        ev, host = fetched
-        if ev is not None:
+        evs, host = fetched
+        for ev in evs:
             ev.synchronize()
         return [np.array(h.numpy()) for h in host]
 
@@ -197,8 +222,11 @@ def _server_save(server, path: str, kind: str, extra: Dict[str, object],
         return sid
 
     slots = [(scalar(s.stream_id), bool(s.active)) for s in server._slots]
+    state = server._state
+    if isinstance(state, Sharded):  # the unsharded layout, in shard order
+        state = unshard_batch_tree(state)
     checkpoint.save_state(
-        path, server._state,
+        path, state,
         extra={"kind": kind, "slots": slots, "gen": server._gen.tolist(),
                "sample_rate_hz": server.sample_rate_hz,
                # Opaque serving-layer state riding the same atomic
@@ -230,7 +258,12 @@ def _server_restore(server, path: str, kind: str, required: tuple = (),
             f"{server.sample_rate_hz} Hz")
     if validate is not None:
         validate(extra)
-    server._state = state_from_numpy(state, server.engine.device)
+    mesh = getattr(server.engine, "mesh", None)
+    if mesh is not None:  # a mesh-sharded engine: land the state sharded
+        server._state = shard_batch_tree(state_from_numpy(state, "cpu"),
+                                         mesh, server.engine.axis_name)
+    else:
+        server._state = state_from_numpy(state, server.engine.device)
     server._slots = [_Slot(sid, active) for sid, active in slots]
     server._by_id = {s.stream_id: i for i, s in enumerate(server._slots)
                      if s.active}

@@ -154,13 +154,17 @@ class GraphCache:
     def run(self, fn: Callable, key, state: Tree, *inputs) -> tuple:
         """`fn(state, *inputs)` as one replay: (*outputs, new_state)."""
         inputs = [as_input(x) for x in inputs]
-        pair, i = self._pair(state)
-        ent = self._entry(key, _signature(state), inputs)
-        for dst, x in zip(ent.ins, inputs):
-            dst.copy_(x, non_blocking=True)
-        if ent.graphs[i] is None:
-            ent.graphs[i] = self._capture(fn, ent, pair[i], pair[1 - i])
-        ent.graphs[i].replay()
+        # The cache's card is the current device throughout: a capture
+        # records on the current device's streams, and the kernels launch
+        # there (a process may hold caches of several cards).
+        with torch.cuda.device(self.device):
+            pair, i = self._pair(state)
+            ent = self._entry(key, _signature(state), inputs)
+            for dst, x in zip(ent.ins, inputs):
+                dst.copy_(x, non_blocking=True)
+            if ent.graphs[i] is None:
+                ent.graphs[i] = self._capture(fn, ent, pair[i], pair[1 - i])
+            ent.graphs[i].replay()
         return (*ent.outs, pair[1 - i])
 
     def _capture(self, fn, ent: _Graphs, src: Tree, dst: Tree):

@@ -935,3 +935,88 @@ def test_islands_fused_stack_on_card(cuda, name, shape):
         got = {k.name: k.launches - b
                for k, b in zip(conv_stack.KERNELS, before) if k in core}
         assert got == {core[0].name: 30, core[1].name: 20}
+
+
+# -- multi-device serving (lyra_tpu_torch/parallel/sharding.py) -------------
+
+
+def _sharded_vs_one_engine(devices, mode, rate):
+    """20 captured ticks of encoder and decoder ShardedEngines over
+    `devices` vs one engine on the first, B = 8: indices and comfort-noise
+    flags bitwise, audio bitwise in every hop without comfort noise in it
+    and within 1 int16 LSB in those with it (the noise estimator's and the
+    comfort-noise generator's cuBLAS matmuls pick their kernel by the row
+    count), every state leaf outside those two modules bitwise, and every
+    shard's state on its own device."""
+    from lyra_tpu_torch.codec.engine import FADE_TO_CNG
+    from lyra_tpu_torch.parallel.sharding import (
+        Sharded,
+        ShardedEngine,
+        make_mesh,
+        unshard_batch_tree,
+    )
+
+    def host(x):
+        return (x.cpu() if isinstance(x, torch.Tensor)
+                else torch.as_tensor(np.asarray(x))).numpy()
+
+    def leaf(state, key):
+        if isinstance(state, Sharded):
+            return torch.cat([p[key].cpu() for p in state.parts])
+        return state[key].cpu()
+
+    b, nq = 8, 30
+    mesh = make_mesh(devices)
+    dev = mesh.devices[0]
+
+    def engines():
+        return (EncoderEngine(rate, SMALL, mode=mode, device=dev),
+                DecoderEngine(rate, SMALL, mode=mode, device=dev))
+
+    one = engines()
+    sharded = [ShardedEngine(e, mesh) for e in engines()]
+    assert all(len(e.graphs) == len(devices) for e in sharded)
+    audio, received = _tick_inputs(rate, 20, b)
+    runs = []
+    for enc, dec in (one, sharded):
+        es, ds, out = enc.init_state(b), dec.init_state(b, seed=4), []
+        for t in range(20):
+            idx, _, es = enc.step(es, audio[t], nq)
+            idx = host(idx)
+            pre = ds
+            pcm, cn, ds = dec.step(ds, idx, received[t])
+            mixes = ((leaf(ds, "fade_dir") == FADE_TO_CNG)
+                     | (leaf(pre, "fade") != 0)).numpy()
+            out.append((idx, host(pcm), host(cn), mixes))
+        runs.append((out, es, ds))
+    (ref, es_r, ds_r), (got, es_s, ds_s) = runs
+    for t, (r, g) in enumerate(zip(ref, got)):
+        np.testing.assert_array_equal(g[0], r[0], err_msg=f"indices {t}")
+        np.testing.assert_array_equal(g[2], r[2], err_msg=f"cn {t}")
+        np.testing.assert_array_equal(g[3], r[3], err_msg=f"cn rows {t}")
+        np.testing.assert_array_equal(g[1][~r[3]], r[1][~r[3]])
+        assert np.abs(g[1].astype(np.float64) - r[1]).max() <= 1.0, t
+    assert any(r[3].any() for r in ref)  # comfort noise was reached
+    for state, ref_state, skip in ((es_s, es_r, ()),
+                                   (ds_s, ds_r, ("noise", "cng"))):
+        for k, part in enumerate(state.parts):
+            assert all(v.device == mesh.devices[k]
+                       for _, v in capture.leaves(part))
+        for (p, x), (_, y) in zip(capture.leaves(unshard_batch_tree(state)),
+                                  capture.leaves(ref_state)):
+            if p[0] not in skip:
+                assert torch.equal(x, y.cpu()), p
+
+
+@pytest.mark.parametrize("mode,rate", [("float", 16000), ("bf16", 48000)])
+def test_sharded_engines_on_one_card_match_one_engine(cuda, mode, rate):
+    """Two shards on cuda:0: separate graph caches and pools, the shards'
+    replays back to back on one card."""
+    _sharded_vs_one_engine(["cuda:0", "cuda:0"], mode, rate)
+
+
+@pytest.mark.parametrize("mode,rate", [("float", 16000), ("bf16", 48000)])
+def test_sharded_engines_on_two_cards_match_one_engine(cuda, mode, rate):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    _sharded_vs_one_engine(["cuda:0", "cuda:1"], mode, rate)

@@ -39,6 +39,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from lyra_tpu.tools import fleet as jax_fleet
 from lyra_tpu.tools import serve_main as jax_serve_main
@@ -61,6 +62,28 @@ DELAY = 2  # the hosts' playout delay
 DEPTH = DELAY + 6  # serve_main's jitter-buffer depth
 WIDE = config.packet_size(184)
 PCM = config.num_samples_per_hop(16000) * 2
+# The bound of a wait of its own: every wait here ends when its condition
+# holds; in-process CPU hosts tick many times slower under a loaded test
+# run, so the bound only catches a hang.
+HANG = 300.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The hosts are threads of this process.  With torch's default of one
+    intra-op thread per core in every worker of a parallel test run, a
+    capacity-2 tick took 1.5-2 s, past the control plane's 2 s timeout,
+    and a retried restore ran twice; one thread keeps a tick short."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _control(port):
+    """A HostControl for the tests' own RPCs, restore and drain among them,
+    which must run once: one attempt, answered at the host's next tick."""
+    return HostControl(("127.0.0.1", port), timeout=60.0, retries=1)
 
 
 def _free_udp_port() -> int:
@@ -140,11 +163,28 @@ class _Collector:
             self.got[(int.from_bytes(d[:2], "big"),
                       int.from_bytes(d[2:HDR], "big"))] = d[HDR:]
 
-    def wait(self, pred, timeout=60.0):
-        deadline = time.time() + timeout
+    def wait(self, pred, stall=60.0, limit=HANG):
+        """Until pred() holds.  The hosts tick at the pace the machine
+        allows (in-process CPU hosts slow down many times under a loaded
+        test run), so the wait fails when no datagram has arrived for
+        `stall` seconds — the hosts stopped sending — and, as a bound of
+        its own, after `limit` seconds in all."""
+        start = last = time.time()
+        seen = len(self.got)
         while not pred():
-            assert time.time() < deadline, "timed out waiting for downlink"
+            now = time.time()
+            if len(self.got) != seen:
+                seen, last = len(self.got), now
+            assert now - last < stall, f"no downlink for {stall} s"
+            assert now - start < limit, "timed out waiting for downlink"
             time.sleep(0.01)
+
+    def wait_through(self, seq):
+        """Until every slot's downlink has reached sequence `seq`; the
+        datagrams before it are then in, or lost for good (a host sends
+        each slot's hops in sequence order)."""
+        self.wait(lambda: all(any(s == slot and q >= seq for s, q in
+                                  list(self.got)) for slot in range(CAP)))
 
     def close(self):
         self._stop.set()
@@ -248,7 +288,7 @@ def test_control_plane_and_inprocess_migration(tmp_path):
     snapshot taking the same collects."""
     col_a, col_b = _Collector(), _Collector()
     host_a = _Host(echo=col_a.echo)
-    ctl_a = HostControl(("127.0.0.1", host_a.ctl_port))
+    ctl_a = _control(host_a.ctl_port)
     tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     pkts = _packets(1, 40)
     host_b = ctl_b = None
@@ -279,7 +319,7 @@ def test_control_plane_and_inprocess_migration(tmp_path):
 
         # Warm standby B, then the migration: drain A, restore into B.
         host_b = _Host(echo=col_b.echo)
-        ctl_b = HostControl(("127.0.0.1", host_b.ctl_port))
+        ctl_b = _control(host_b.ctl_port)
         ctl_b.wait_ready(120)
         drain = str(tmp_path / "drainA")
         ctl_a.drain(drain)
@@ -291,8 +331,7 @@ def test_control_plane_and_inprocess_migration(tmp_path):
         burst = _burst(heads, [20] * CAP, seed=50)
         for slot, seq, payload in burst:
             tx.sendto(_hdr(slot, seq) + payload, host_b.addr)
-        col_b.wait(lambda: all((s, q) in col_b.got for s in range(CAP)
-                               for q in range(lo, lo + DEPTH + DELAY + 12)))
+        col_b.wait_through(lo + DEPTH + DELAY + 11)
         stats = ctl_b.stats()
         assert stats["active"] == CAP  # A's slot table came across
         _check_cutover(drain, burst, col_b.got, lo, lo + 10, stats)
@@ -315,7 +354,7 @@ def test_periodic_snapshot_is_restorable(tmp_path):
     snap = str(tmp_path / "auto")
     host = _Host(extra=("--snapshot", snap, "--snapshot_every", "0.2"))
     try:
-        deadline = time.time() + 60
+        deadline = time.time() + HANG
         while not os.path.exists(snap + ".npz") and time.time() < deadline:
             time.sleep(0.05)
         assert os.path.exists(snap + ".npz"), "no periodic snapshot"
@@ -338,7 +377,7 @@ def test_restore_flag_resumes_snapshot(tmp_path):
     snap = str(tmp_path / "snap")
     dec.save(snap)
     host = _Host(extra=("--restore", snap))
-    ctl = HostControl(("127.0.0.1", host.ctl_port))
+    ctl = _control(host.ctl_port)
     try:
         assert ctl.wait_ready(120)["mode"] == "decode"
         assert ctl.stats()["active"] == 1
@@ -361,13 +400,13 @@ def test_set_bitrate_mid_call():
     host = _Host(extra=("--mode", "encode", "--bitrate", "9200",
                         "--max_bitrate", "9200", "--ingest", "python"),
                  echo=col.echo)
-    ctl = HostControl(("127.0.0.1", host.ctl_port))
+    ctl = _control(host.ctl_port)
     tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     t = np.arange(320) / 16000.0
     hop = (8000 * np.sin(2 * np.pi * 440 * t)).astype(np.int16).tobytes()
     seq = 0
 
-    def pump_until(slot0_size, deadline_s=60):
+    def pump_until(slot0_size, deadline_s=HANG):
         """Drive PCM into both slots until slot 0 relays a packet of
         `slot0_size` bytes; → the sizes slot 1 relayed meanwhile."""
         nonlocal seq
@@ -427,7 +466,7 @@ class _Fleet:
         assert not self.thread.is_alive()
 
 
-def _wait_failover(adm, deadline_s=60):
+def _wait_failover(adm, deadline_s=HANG):
     deadline = time.time() + deadline_s
     while time.time() < deadline:
         st = adm.request("stats")["stats"]
@@ -471,7 +510,7 @@ def test_fleet_admission_and_auto_failover(tmp_path):
 
         _stream(lambda i: send(i, host_a.addr), 10)
         col.wait(lambda: any(s == slot for s, _ in col.got))
-        deadline = time.time() + 30
+        deadline = time.time() + HANG
         while (not os.path.exists(os.path.join(snap_dir, "a.npz"))
                and time.time() < deadline):
             time.sleep(0.05)
@@ -541,7 +580,7 @@ def test_controller_restart_mid_call_then_failover(tmp_path):
         assert st["hosts"]["a"]["occupied"] == 2
         assert st["hosts"]["spare"]["standby"] is True
 
-        deadline = time.time() + 30
+        deadline = time.time() + HANG
         while (not os.path.exists(os.path.join(snap_dir, "a.npz"))
                and time.time() < deadline):
             time.sleep(0.05)
@@ -580,7 +619,7 @@ def test_fleet_caller_end_to_end_with_live_migration(tmp_path):
                     "--snapshot_dir", snap_dir, "--wait_ready",
                     "--watch_every", "0"])
     callers = []
-    ctl_b = HostControl(("127.0.0.1", host_b.ctl_port))
+    ctl_b = _control(host_b.ctl_port)
     pkts = _packets(2, 40)
     try:
         callers = [FleetCaller(fleet.addr, f"caller{c}") for c in range(CAP)]
@@ -598,7 +637,7 @@ def test_fleet_caller_end_to_end_with_live_migration(tmp_path):
                 c.send_packet(pkts[i][c.slot])
 
         _stream(send, 20, recv)
-        deadline = time.time() + 30
+        deadline = time.time() + HANG
         while not all(got.values()):
             assert time.time() < deadline, "no downlink PCM from host A"
             recv()
@@ -622,7 +661,7 @@ def test_fleet_caller_end_to_end_with_live_migration(tmp_path):
             caller.seq = seq
             caller.send_packet(payload)
         got = {c.slot: {} for c in callers}
-        deadline = time.time() + 30
+        deadline = time.time() + HANG
         while min(len(g) for g in got.values()) < DEPTH + DELAY + 4:
             assert time.time() < deadline, "no downlink PCM from host B"
             recv()
@@ -732,7 +771,9 @@ def test_keyed_host_control_crosses_packages(tmp_path, client):
                  key=key_file)
     addr = ("127.0.0.1", host.ctl_port)
     ctl = ctl_cls(addr, key=load_key(key_file))
-    bad = ctl_cls(addr, key=load_key(other), retries=1, timeout=1.0)
+    # One attempt, so the refusal is counted once; the host answers at its
+    # next tick, which a loaded test run can delay by seconds.
+    bad = ctl_cls(addr, key=load_key(other), retries=1, timeout=60.0)
     try:
         assert ctl.wait_ready(120)["mode"] == "decode"
         snap = str(tmp_path / "snap")
@@ -764,10 +805,9 @@ def test_migrate_jax_host_to_port_host(tmp_path):
     host_a = _Host(package=jax_serve_main, echo=col_a.echo)
     host_b = _Host(echo=col_b.echo)
     router = FleetRouter()
-    router.add_host("A", host_a.addr, HostControl(
-        ("127.0.0.1", host_a.ctl_port)), CAP)
-    router.add_host("B", host_b.addr, HostControl(
-        ("127.0.0.1", host_b.ctl_port)), CAP, standby=True)
+    router.add_host("A", host_a.addr, _control(host_a.ctl_port), CAP)
+    router.add_host("B", host_b.addr, _control(host_b.ctl_port), CAP,
+                    standby=True)
     tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     pkts = _packets(3, 40)
     try:
@@ -792,8 +832,7 @@ def test_migrate_jax_host_to_port_host(tmp_path):
         for slot, seq, payload in burst:
             tx.sendto(_hdr(slot, seq) + payload, host_b.addr)
         ticks = DEPTH + DELAY + 2
-        col_b.wait(lambda: all((s, q) in col_b.got for s in range(CAP)
-                               for q in range(lo, lo + ticks + 10)))
+        col_b.wait_through(lo + ticks + 9)
         t0 = _check_cutover(snap, burst, col_b.got, lo, lo + 10,
                             router.control("B").stats())
         jax_dec = JaxDecoderServer(CAP, engine=JaxDecoderEngine(

@@ -12,7 +12,9 @@ port's serve_main serves a decode run over the native ingest and egress
 (transport, control plane, stats sink and the bridge's modules among the
 imports) and echoes PCM for the datagrams it is sent; last, one hop goes
 through the single-stream facades (LyraEncoder → LyraDecoder) and a wav
-through the encoder and decoder CLIs.
+through the encoder and decoder CLIs; last, the multi-device dry run on a
+CPU mesh of two shards (parallel/dryrun.py: a sharded codec tick and a
+sharded bridge tick).
 """
 
 import os
@@ -47,7 +49,7 @@ _CHILD = textwrap.dedent("""
         lyra_tpu_torch.__path__, "lyra_tpu_torch.")]
     for name in modules:
         importlib.import_module(name)
-    assert len(modules) >= 62, modules
+    assert len(modules) >= 65, modules
     assert {f"lyra_tpu_torch.{m}" for m in (
         "utils.native", "tools.jitter_buffer", "tools.udp_ingest",
         "tools.udp_egress", "tools.control_auth", "tools.fleet",
@@ -59,7 +61,8 @@ _CHILD = textwrap.dedent("""
         "tools.melspec_benchmark", "tools.fleet_main", "client",
         "examples", "examples.drain_migrate", "examples.loopback_call",
         "examples.udp_call", "examples.conference_call",
-        "examples.rate_adapt_call", "examples.multihost_migrate")} <= set(
+        "examples.rate_adapt_call", "examples.multihost_migrate",
+        "parallel", "parallel.sharding", "parallel.dryrun")} <= set(
             modules)
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
@@ -169,6 +172,8 @@ _CHILD = textwrap.dedent("""
                                   f"--model_path={path}"], device="cpu") == 0
         assert len(wav.read_wav_int16(
             os.path.join(tmp, "s_decoded.wav")).samples) == 5 * 320
+    from lyra_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(2, devices=["cpu"] * 2, model_path=path)
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_TICK_OK")
 """)

@@ -33,6 +33,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from lyra_tpu.tools import control_auth as jax_auth
 from lyra_tpu.tools import jitter_buffer as jax_jb
@@ -652,19 +653,87 @@ def test_serve_main_bridge_matches_offline_replay():
     ["--control_key", "/nonexistent"],
     ["--ingest_shards", "2", "--ingest", "python"],
 ])
-def test_serve_main_refusals(argv, capsys):
-    """Refused at parse time, before any engine is built; each refusal
-    the JAX host makes (all but --devices, which it serves) is made the
-    same way."""
+def test_serve_main_refusals(argv, capsys, monkeypatch):
+    """Refused before any engine is built, each the way the JAX host
+    refuses it: at parse time, or --devices N with fewer than N cards
+    attached (one here, faked) with the JAX host's ValueError."""
+    if argv[:2] == ["--devices", "2"]:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError) as exc:
+            serve_main.main([*argv, "--model_path", SMALL], device="cuda")
+        assert str(exc.value) == "--devices=2 but only 1 are attached"
+        return
     with pytest.raises(SystemExit) as exc:
         serve_main.main([*argv, "--model_path", SMALL], device="cpu")
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if argv[:2] == ["--devices", "2"]:
-        assert "multi-GPU" in err and "not ported" in err
-        return
     with pytest.raises(SystemExit) as ref:
         jax_serve_main.main([*argv, "--model_path", SMALL])
     assert ref.value.code == 2
     assert capsys.readouterr().err.splitlines()[-1].split(": error: ")[1] == \
         err.splitlines()[-1].split(": error: ")[1]
+
+
+def _cn_enters(pre, post):
+    """[CAP] bool: rows whose hop from decoder state `pre` to `post` has
+    comfort noise in it (the engine's run_cng)."""
+    from lyra_tpu_torch.codec.engine import FADE_TO_CNG
+
+    return ((post["fade_dir"] == FADE_TO_CNG) | (pre["fade"] != 0)).numpy()
+
+
+@pytest.mark.parametrize("mode", ["decode", "bridge"])
+def test_serve_main_devices_2_matches_one_engine_replay(mode):
+    """--devices 2, here the CPU named twice (two shards of CAP / 2 slots,
+    ShardedEngine pairs, the bridge's shard-local mixer): the downlink
+    equals the offline replay over one unsharded engine, which --devices 1
+    equals bit for bit (the tests above) — bitwise, but within 1 int16
+    LSB in a hop with comfort noise in it (decode) and in a room that has
+    had comfort noise (bridge): the noise estimator's and the comfort-
+    noise generator's matmuls sum in another order at another row count
+    (tests/test_torch_sharding.py).  Rooms that do not tile the shards
+    are refused before any engine is built."""
+    delay = 2
+    script = _script(12, CAP, delay + 6)
+    want = delay + 6 + 3
+    argv = ["--playout_delay", str(delay), "--devices", "2"]
+    if mode == "bridge":
+        argv += ["--mode", "bridge", "--room_size", "2", "--bitrate", "6000"]
+        with pytest.raises(ValueError, match="does not tile 2 shards"):
+            serve_main.main(["--mode", "bridge", "--room_size", "3",
+                             "--devices", "2", "--capacity", str(CAP),
+                             "--model_path", SMALL], device="cpu")
+    got, rec = _serve(argv, _preload(script, None), want)
+    assert rec["jb"]["late_drops"] == rec["jb"]["overflow_drops"] == 0
+    collects, _ = _replay_collects(script, want, delay)
+    dec_e = DecoderEngine(16000, SMALL, max_bitrate=9200, emit_dtype="int16",
+                          device="cpu")
+    if mode == "decode":
+        dec = DecoderServer(CAP, engine=dec_e)
+        dec.add_streams(range(CAP))
+    else:
+        dec = ConferenceBridge(CAP, bitrate=6000, dec_engine=dec_e,
+                               enc_engine=EncoderEngine(
+                                   16000, SMALL, max_bitrate=9200,
+                                   device="cpu"))
+        dec.add_participants({slot: slot // 2 for slot in range(CAP)})
+    tainted = np.zeros(CAP // 2, bool)
+    for seq, (pkts, received, sizes) in enumerate(collects):
+        server = dec if mode == "decode" else dec._dec
+        pre = server._state
+        out = dec.tick_wire(pkts, received, sizes.astype(np.int32))
+        cn = _cn_enters(pre, server._state)
+        tainted[np.flatnonzero(cn) // 2] = True
+        for slot in range(CAP):
+            if mode == "decode":
+                hop = np.frombuffer(got[(slot, seq)], np.int16)
+                if cn[slot]:
+                    assert np.abs(hop.astype(np.int32)
+                                  - out[slot].astype(np.int32)).max() <= 1
+                else:
+                    assert got[(slot, seq)] == out[slot].tobytes()
+            elif not tainted[slot // 2]:
+                wire, sizes_out = out
+                assert got[(slot, seq)] == \
+                    wire[slot, :sizes_out[slot]].tobytes()
+    assert rec["bad_packets"] == int(dec.bad_packets.sum()) > 0

@@ -750,7 +750,7 @@ def test_conference_bridge_matches_jax(engines, tmp_path):
         assert {sid: reader.room_of(sid) for sid in rooms_by_id} == rooms_by_id
         np.testing.assert_array_equal(reader._enc._bits, writer._enc._bits)
     # One-shard placement: the pinned room's joiner first, then new rooms
-    # largest first; more than one shard is not ported.
+    # largest first; over two shards the JAX bridge's placement.
     for b in (jb, tb):
         b.remove_participant("p3")
         b.remove_participant("p1")
@@ -759,5 +759,12 @@ def test_conference_bridge_matches_jax(engines, tmp_path):
     with pytest.raises(RuntimeError):
         tb.shard_affine_slots({"x": "C", "y": "C", "z": "D"})
     assert tb.num_shards == jb.num_shards == 1
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tb.shard_affine_slots({"q": "B"}, num_shards=2)
+    def placed(b, joiners, n):
+        try:
+            return b.shard_affine_slots(joiners, num_shards=n)
+        except (ValueError, RuntimeError) as e:
+            return type(e), str(e)
+
+    for joiners in ({"q": "B"}, {"r": "C", "s": "C"}):
+        for n in (2, 4):
+            assert placed(tb, joiners, n) == placed(jb, joiners, n)
