@@ -218,6 +218,43 @@ Phases, one line each; any failed check raises and exits nonzero:
               captured server tick over one engine vs the sharded engines
               in turns (wall p50/p99), device time and CUDA kernels per
               replayed tick from the profiler, memory per card.
+ 15. quant    the quantized modes on the islands fixture at full width,
+              on the plain backend, which alone runs them (their graphs
+              have no kernel; their RVQ search runs on rvq_encode): (a)
+              every int8 op of both graphs (int8 convs, LEAKY_RELU, ADD,
+              QUANTIZE, DEQUANTIZE) fed the tensors of one hop of a CPU
+              run of the port at B=64: bitwise the CPU's output on the
+              card; (b) the int8 and fakequant engines, encoder → wire →
+              decoder, 20 hops at B=64, the card's captured steps from the
+              CPU engines' pre-hop state each hop: rvq_encode on the CPU's
+              features equal to the CPU's search but at near-ties (≤ 0.1
+              %), comfort-noise flags equal, at most 1e-3 of the int8
+              elements of both graphs differing (every 4th hop), the
+              audio's per-hop log-spectral distance within 0.004 dB mean
+              and 0.2 dB max (bars set from the card's readings: rare f32
+              rounding flips at an island's QUANTIZE), and a control that
+              must fail those bars: the CPU's fakequant audio against its
+              int8 audio; features, the card's own indices and audio in
+              LSB printed; (c) state_compression="int8"
+              in float and bf16: 20 captured ticks at B=64 bitwise an
+              eager run's, a snapshot round trip (save_state /
+              load_state) bitwise, the compressed decoder snapshot under
+              0.55 × the float32 state's bytes (the JAX package's bar), and
+              the int8 and f8 graphs' bits the same with cuDNN's TF32
+              allowed and not; (d) the fp8 cast on the card gives the JAX
+              package's bits (±448, the ties at 464, NaN past it, ±inf,
+              NaN, subnormals; float32 and bfloat16), and boundary_store=
+              "f8" in float and bf16 card vs CPU as in (b), printed; (e)
+              at B=1024, int8, fakequant, float with int8 state, float and
+              bf16 with f8 boundaries (the phase's main path), and float
+              on the plain and on the kernel backend beside them: each
+              through `_drive` (20 captured ticks of fresh engines, launch
+              counts zeroed before and read after: rvq_encode launched,
+              no conv-stack kernel on the plain backend; device µs and
+              CUDA kernels per replayed tick from the profiler), the
+              memory its engines hold and its run's peak, then the wall
+              time per captured tick, p50/p99, in alternating turns;
+              nothing in (e) is gated but the main path's checks.
 The 3e-2 bars were measured on the small fixture; where the full fixture
 needs more room, the bar becomes 1.5 × the deviation of the plain bf16
 path from the plain f32 path on the same inputs, measured in the same
@@ -226,10 +263,11 @@ Then one JSON line with every kernel (per hop at B=1024: kernel, plain
 and library time as eager medians in ms/plain_ms/library_ms and as
 graph-replay medians in graph_ms/plain_graph_ms/library_graph_ms, the
 cold-L2 single launch in cold_ms where measured, bound and what sets it,
-`launches`: the launches over the main paths' runs of phases 6, 7 and
-12, and `launches_per_tick`: the launches per replayed tick in those
+`launches`: the launches over the main paths' runs of phases 6, 7, 12
+and 15, and `launches_per_tick`: the launches per replayed tick in those
 runs' profiler windows, both summed over them; the core kernels run only
-on the islands fixture, in phase 12), the card's name and
+on the islands fixture, in phase 12; phase 15's path launches only
+rvq_encode), the card's name and
 power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -3642,6 +3680,469 @@ def phase_sharding(path, gpu):
           f"({len(meshes)} mesh{'es' if len(meshes) > 1 else ''})")
 
 
+# ---- phase 15: the quantized modes (int8, fakequant, int8 state, fp8) -------
+
+QUANT_BATCH, QUANT_HOPS = 64, 20  # (a)-(d): the card-vs-CPU runs
+QUANT_TIMED = 20  # (e): timed ticks per turn
+QUANT_TICKS = 20  # (e): captured ticks of each configuration's main path
+QUANT_ENV_EVERY = 4  # (b): int8 tensors compared on every 4th hop
+# (b): per-hop log-spectral distance between the card's and the CPU's audio,
+# mean and max over hops and streams, dB, set from the H100's readings
+# (mean 0.0002 int8 / 0.0004 fakequant, max 0.0517 / 0.0657): the mean bar
+# about 10 × the larger reading, the max bar 3 ×.  The control — the CPU's
+# fakequant audio against its int8 audio, the same inputs — must fail both
+# (measured on the CPU at B=16: mean 0.21, max 0.65 dB).
+QUANT_LSD_MEAN, QUANT_LSD_MAX = 0.004, 0.2
+# (b): the share of int8 elements that may differ from the CPU's (read:
+# 4.8e-5; an f32 conv's last bit moves a QUANTIZE input across its edge).
+QUANT_INT8_DIFF = 1e-3
+# (e)'s configurations at B=1024, islands fixture: name → engine keywords.
+# The first five are this phase's main path (their graphs run on the plain
+# lowering, their RVQ search on rvq_encode); the last two are the float
+# paths printed beside them.
+QUANT_CONFIGS = (
+    ("int8", {"mode": "int8", "backend": "plain"}),
+    ("fakequant", {"mode": "fakequant", "backend": "plain"}),
+    ("float int8-state", {"state_compression": "int8", "backend": "plain"}),
+    ("float f8", {"boundary_store": "f8", "backend": "plain"}),
+    ("bf16 f8", {"mode": "bf16", "boundary_store": "f8", "backend": "plain"}),
+    ("float plain", {"backend": "plain"}),
+    ("float kernel", {"backend": "kernel"}),
+)
+# fp8 e4m3 casts (d): inputs and the JAX package's bits (XLA's convert:
+# round to nearest even, NaN past 464 with the sign of x), recorded from
+# jax 0.9 by tests/test_torch_quant_f8.py's method; 465 is 464 in bf16.
+FP8_INPUTS = np.array(
+    [448, -448, 460, 464, -464, 465, 480, 500, 1000, -600, np.inf, -np.inf,
+     np.nan, -np.nan, 2.0 ** -6, 2.0 ** -7, 2.0 ** -9, -2.0 ** -9,
+     2.0 ** -10, 3 * 2.0 ** -11, 2.0 ** -11, 0.0, -0.0, 1.0625], np.float32)
+FP8_BITS = {
+    "float32": [0x7E, 0xFE, 0x7E, 0x7E, 0xFE, 0x7F, 0x7F, 0x7F, 0x7F, 0xFF,
+                0x7F, 0xFF, 0x7F, 0xFF, 0x08, 0x04, 0x01, 0x81, 0x00, 0x01,
+                0x00, 0x00, 0x80, 0x38],
+    "bfloat16": [0x7E, 0xFE, 0x7E, 0x7E, 0xFE, 0x7E, 0x7F, 0x7F, 0x7F, 0xFF,
+                 0x7F, 0xFF, 0x7F, 0xFF, 0x08, 0x04, 0x01, 0x81, 0x00, 0x01,
+                 0x00, 0x00, 0x80, 0x38],
+}
+
+
+def _bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 → bfloat16 bit patterns (round to nearest even; a NaN keeps
+    its sign), as numpy int16."""
+    u = a.view(np.uint32).astype(np.uint64)
+    rne = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+    nan = (u >> 16) | 0x40
+    return np.where(np.isnan(a), nan, rne).astype(np.uint16).view(np.int16)
+
+
+def _to_card(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _quant_ops(path, dev):
+    """(a) Every int8 op of both graphs (the int8 mode's ops: int8 convs,
+    LEAKY_RELU, ADD, QUANTIZE, DEQUANTIZE of a tensor), fed the tensors of
+    the third hop of a CPU run at B=64: on the card bit for bit the CPU's
+    output.  → summary."""
+    import torch
+
+    from lyra_tpu_torch.tflite.executor import load_graph
+
+    rng = np.random.default_rng(15)
+    kinds, elems = {}, 0
+    for name, shape, scale in MODELS:
+        p = os.path.join(path, f"{name}.tflite")
+        host = load_graph(p, mode="int8", device="cpu")
+        card = load_graph(p, mode="int8", device=dev)
+        run = host.lower(capture_env=True)
+        st = host.init_state(QUANT_BATCH)
+        for _ in range(3):
+            x = torch.tensor(rng.normal(0.0, scale, (QUANT_BATCH,) + shape),
+                             dtype=torch.float32)
+            _, st, env = run(st, input_audio=x)
+        for oi, entry in host._int8.items():
+            if entry is None:
+                continue
+            op = host.sg.ops[oi]
+            fn, ins, args, kw = card._int8[oi]
+            got = fn(*(env[i].to(dev) for i in ins), *args, **kw)
+            want = env[op.outputs[0]]
+            check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                  f"quant (a): {name} {op.name} (op {oi}) differs on the card")
+            kinds[op.name] = kinds.get(op.name, 0) + 1
+            elems += want.numel()
+    per_kind = ", ".join(f"{k} {n}" for k, n in sorted(kinds.items()))
+    return (f"{sum(kinds.values())} int8 ops ({per_kind}), {elems} output "
+            f"elements at B={QUANT_BATCH}, bitwise the CPU's")
+
+
+def _int8_envs(graphs, state, x, dev):
+    """Differing int8 elements, and all int8 elements, of one graph hop on
+    the card vs the CPU from the same state and input."""
+    import torch
+
+    host, card = graphs
+    _, _, env_h = host.lower(capture_env=True)(state, input_audio=x)
+    _, _, env_c = card.lower(capture_env=True)(_to_card(state, dev),
+                                               input_audio=x.to(dev))
+    diff = total = 0
+    for i, v in env_h.items():
+        if v.dtype == torch.int8:
+            diff += int((env_c[i].cpu() != v).sum())
+            total += v.numel()
+    return diff, total
+
+
+def _hop_lsd(a, b):
+    """Log-spectral distance (dB) of each hop of each stream between two
+    [hops, B, hop] audio runs at int16 scale, each through its own
+    streaming log-mel extractor (the JAX oracle test's metric)."""
+    from lyra_tpu_torch import config
+    from lyra_tpu_torch.dsp import melspec
+    from lyra_tpu_torch.dsp import utils as dsp_utils
+
+    cfg = melspec.MelConfig.for_rate(16000, config.NUM_FEATURES)
+    ea, eb = (melspec.LogMelExtractor(cfg, device="cpu") for _ in "ab")
+    sa, sb = ea.init_state(a.shape[1]), eb.init_state(b.shape[1])
+    out = []
+    for x, y in zip(a, b):
+        ma, sa = ea.extract(sa, x)
+        mb, sb = eb.extract(sb, y)
+        out.append(dsp_utils.log_spectral_distance(ma, mb))
+    return np.stack([o.numpy() for o in out])
+
+
+def _quant_engines(path, dev, kwargs, gate=True):
+    """(b)/(d): the engines (encoder → device wire → decoder) of `kwargs`
+    on the card vs the same engines on the CPU, QUANT_HOPS hops at
+    QUANT_BATCH with phase 6's loss pattern: the CPU carries its state,
+    and each hop the card starts from the CPU's pre-hop state, as the CPU
+    tests start the port from the JAX engines'.  Per hop: the card's
+    features vs the CPU's; the RVQ kernel on the CPU's features vs the
+    CPU's search (a row may differ only at a near-tie, as in phase 4); the
+    card's captured encoder step's indices vs the CPU's (printed); the
+    card's captured decoder step on the CPU's wire indices vs the CPU's
+    audio and comfort-noise flags; for int8, on every QUANT_ENV_EVERY-th
+    hop, the int8 elements of both graphs that differ from the CPU's.  With
+    `gate`: near-ties only (≤ 0.1 % of rows), flags equal, at most
+    QUANT_INT8_DIFF of the int8 elements differing, and the audio's per-hop
+    log-spectral distance within QUANT_LSD_MEAN / QUANT_LSD_MAX — not the
+    CPU tests' 1 int16 LSB: the card's f32 convs round differently from the
+    CPU's, and now and then that carries a QUANTIZE input across its
+    rounding edge, a whole int8 step that the layers after it spread (which
+    the small fixture's CPU tests never met).  → (summary, the CPU's audio
+    [hops, B, hop])."""
+    import torch
+
+    from lyra_tpu_torch import packet
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.dsp import utils as dsp_utils
+
+    cpu = torch.device("cpu")
+    enc_h, dec_h = (E(16000, path, device=cpu, **kwargs)
+                    for E in (EncoderEngine, DecoderEngine))
+    enc_c, dec_c = (E(16000, path, device=dev, **kwargs)
+                    for E in (EncoderEngine, DecoderEngine))
+    int8 = kwargs.get("mode") == "int8"
+    pairs = [(m_h._run._graph, m_c._run._graph) for m_h, m_c in (
+        (enc_h.soundstream, enc_c.soundstream), (dec_h.gan, dec_c.gan))]
+    audio, received = _inputs(QUANT_BATCH, QUANT_HOPS, cpu)
+    es, ds = enc_h.init_state(QUANT_BATCH), dec_h.init_state(QUANT_BATCH)
+    nq, bits = 30, 120
+    feat_err = lsb = 0.0
+    near = own_rows = cn_diff = off_lsb = diff8 = all8 = 0
+    outs_c, outs_h = [], []
+    for t in range(QUANT_HOPS):
+        x, rec = audio[t], received[t]
+        unit = dsp_utils.int16_to_unit(x)
+        feats_h, _ = enc_h.soundstream.extract(es["soundstream"], unit)
+        feats_c, _ = enc_c.soundstream.extract(
+            _to_card(es["soundstream"], dev), unit.to(dev))
+        feat_err = max(feat_err, rel_err(feats_c.cpu(), feats_h))
+        idx_h, _, es_next = enc_h.step(es, x, nq)
+        idx_k = enc_c.rvq.quantize(feats_h.to(dev), nq,
+                                   method=enc_c._rvq_method).cpu()
+        near += _rvq_near_ties(f"quant {kwargs}", idx_k, idx_h, feats_h,
+                               enc_h.rvq)
+        idx_c = enc_c.step(_to_card(es, dev), x.to(dev), nq)[0].cpu()
+        own_rows += int((idx_c != idx_h).any(dim=1).sum())
+        dec_idx = torch.full_like(idx_h, -1)
+        dec_idx[:, :nq] = packet.unpack_wire_device(
+            packet.pack_wire_device(idx_h, bits), bits)
+        a_c, cn_c, _ = dec_c.step(_to_card(ds, dev), dec_idx.to(dev),
+                                  rec.to(dev))
+        a_c, cn_c = a_c.cpu(), cn_c.cpu()
+        if int8 and t % QUANT_ENV_EVERY == 0:
+            lossy = dec_h.rvq.decode(dec_idx)
+            for (graphs, state, inp) in (
+                    (pairs[0], es["soundstream"], unit),
+                    (pairs[1], ds["gan"], lossy[:, None, :])):
+                d, n = _int8_envs(graphs, state, inp, dev)
+                diff8, all8 = diff8 + d, all8 + n
+        a_h, cn_h, ds = dec_h.step(ds, dec_idx, rec)
+        es = es_next
+        check(bool(torch.isfinite(a_c).all()), f"quant {kwargs}: non-finite")
+        d = (a_c - a_h).abs()
+        lsb = max(lsb, float(d.max()))
+        off_lsb += int((d > 1.0).sum())
+        cn_diff += int((cn_c != cn_h).sum())
+        outs_c.append(a_c)
+        outs_h.append(a_h)
+    lsd = _hop_lsd(torch.stack(outs_c), torch.stack(outs_h))
+    line = (f"features rel err {feat_err:.3e}; RVQ kernel on the CPU's "
+            f"features: rows differing at near-ties {near} of "
+            f"{QUANT_HOPS * QUANT_BATCH}; the card's encoder step: rows "
+            f"differing {own_rows}; audio max diff {lsb:g} LSB ({off_lsb} "
+            f"samples > 1 LSB), per-hop LSD mean {lsd.mean():.6f} max "
+            f"{lsd.max():.6f} dB; comfort-noise flags differing {cn_diff}")
+    if int8:
+        line += (f"; int8 elements differing {diff8} of {all8} "
+                 f"({diff8 / all8:.3e})")
+    if gate:
+        check(cn_diff == 0 and near <= 0.001 * QUANT_HOPS * QUANT_BATCH
+              and diff8 <= QUANT_INT8_DIFF * all8
+              and lsd.mean() < QUANT_LSD_MEAN and lsd.max() < QUANT_LSD_MAX,
+              f"quant {kwargs}: card vs CPU beyond the bars: {line}")
+    return line, torch.stack(outs_h)
+
+
+def _quant_state(path, dev):
+    """(c) state_compression="int8", float and bf16, at QUANT_BATCH:
+    QUANT_HOPS captured ticks bitwise an eager run's (audio, indices,
+    state); a snapshot round trip through save_state / load_state bitwise;
+    the compressed decoder snapshot under 0.55 × the bytes of the float32
+    state's (the JAX package's bar); the int8 and f8 graphs' bits the same
+    with cuDNN's TF32 allowed and not.  → summary."""
+    import tempfile
+
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.tflite.executor import load_graph
+    from lyra_tpu_torch.utils import checkpoint
+    from lyra_tpu_torch.utils.state import state_from_numpy
+
+    lines = []
+    audio, received = _inputs(QUANT_BATCH, QUANT_HOPS, dev)
+    for mode in ("float", "bf16"):
+        kw = dict(mode=mode, backend="plain", state_compression="int8",
+                  device=dev)
+        cap = (EncoderEngine(16000, path, **kw), DecoderEngine(16000, path,
+                                                               **kw))
+        eag = tuple(_eager(E(16000, path, **kw))
+                    for E in (EncoderEngine, DecoderEngine))
+        st = {"cap": [cap[0].init_state(QUANT_BATCH),
+                      cap[1].init_state(QUANT_BATCH)],
+              "eag": [eag[0].init_state(QUANT_BATCH),
+                      eag[1].init_state(QUANT_BATCH)]}
+        for t in range(QUANT_HOPS):
+            got = {}
+            for k, (enc, dec) in (("cap", cap), ("eag", eag)):
+                out, cn, st[k][0], st[k][1], idx = _tick(
+                    enc, dec, *st[k], audio[t], received[t], 120)
+                got[k] = (out.clone(), cn.clone(), idx.clone())
+            check(all(torch.equal(a, b) for a, b in zip(got["cap"],
+                                                        got["eag"])),
+                  f"quant (c) {mode}: captured tick {t} differs from eager")
+        for a, b in zip(_leaves_of(st["cap"]), _leaves_of(st["eag"])):
+            check(torch.equal(a, b), f"quant (c) {mode}: state differs")
+        q = [v for v in _leaves_of(st["cap"][1]["gan"])
+             if v.dtype == torch.int8]
+        check(bool(q), f"quant (c) {mode}: no int8 leaf in the state")
+        with tempfile.TemporaryDirectory() as tmp:
+            sizes = {}
+            plain = DecoderEngine(16000, path, backend="plain", device=dev)
+            for name, state in (("int8", st["cap"][1]),
+                                ("float", plain.init_state(QUANT_BATCH))):
+                f = os.path.join(tmp, name)
+                checkpoint.save_state(f, state)
+                sizes[name] = os.path.getsize(f + ".npz")
+            back = state_from_numpy(checkpoint.load_state(
+                os.path.join(tmp, "int8"))[0], dev)
+        for a, b in zip(_leaves_of(back), _leaves_of(st["cap"][1])):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"quant (c) {mode}: snapshot round trip differs")
+        ratio = sizes["int8"] / sizes["float"]
+        check(ratio < 0.55, f"quant (c) {mode}: compressed snapshot "
+              f"{sizes['int8']} B is {ratio:.3f} of the float one")
+        lines.append(f"{mode}: {QUANT_HOPS} captured ticks bitwise eager, "
+                     f"snapshot round trip bitwise, decoder snapshot "
+                     f"{sizes['int8']} B = {ratio:.3f} × the float32 "
+                     f"state's {sizes['float']} B")
+    rng = np.random.default_rng(16)
+    for kw in ({"mode": "int8"}, {"boundary_store": "f8"},
+               {"mode": "bf16", "boundary_store": "f8"}):
+        for name, shape, scale in MODELS:
+            g = load_graph(os.path.join(path, f"{name}.tflite"), device=dev,
+                           boundary_scale=0.5 if name == MODELS[0][0]
+                           else 1.0, **kw)
+            xs = [torch.tensor(rng.normal(0.0, scale, (QUANT_BATCH,) + shape),
+                               dtype=torch.float32, device=dev)
+                  for _ in range(3)]
+            outs = []
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                s, ys = g.init_state(QUANT_BATCH), []
+                for x in xs:
+                    o, s = g(s, input_audio=x)
+                    ys.append(o["output_0"])
+                outs.append(ys)
+            torch.backends.cudnn.allow_tf32 = False
+            check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                  f"quant (c): {name} {kw} depends on cuDNN's TF32 flag")
+    lines.append("int8 and f8 (float, bf16) graphs: the same bits with "
+                 "cuDNN's TF32 allowed and not (3 hops each)")
+    return "; ".join(lines)
+
+
+def _leaves_of(tree):
+    """Every tensor of a nested dict or list, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_of(v)]
+    return [tree]
+
+
+def _fp8_casts(dev):
+    """(d) `_to_e4m3` on the card: the JAX package's bits; and a boundary
+    store at the encoder's pre-scale 0.5 of twice the inputs: the same
+    bits (the card's multiply drops a NaN's sign; XLA's keeps it)."""
+    import torch
+
+    from lyra_tpu_torch.tflite.executor import _BoundaryEnv, _to_e4m3
+
+    scales = _BoundaryEnv.scales(0.5, dev)
+    twice = np.where(np.isnan(FP8_INPUTS), FP8_INPUTS, FP8_INPUTS * 2)
+    for dtype, want in FP8_BITS.items():
+        for what, a in (("cast", FP8_INPUTS), ("store at scale 0.5", twice)):
+            if dtype == "bfloat16":
+                x = torch.tensor(_bf16_bits(a), device=dev).view(
+                    torch.bfloat16)
+            else:
+                x = torch.tensor(a, device=dev)
+            if what == "cast":
+                got = _to_e4m3(x)
+            else:
+                env = _BoundaryEnv(frozenset([0]), 0.5, x.dtype, scales)
+                env[0] = x
+                got = env[0]
+            got = got.view(torch.uint8).cpu().numpy().tolist()
+            check(got == want, f"quant (d): {dtype} {what} → e4m3 bits "
+                  f"{got} != the JAX package's {want}")
+    return (f"{len(FP8_INPUTS)} casts from float32 and bfloat16 (±448, ties "
+            f"at 464, 465-1000, ±inf and ±NaN to NaN, subnormals) and the "
+            f"same stored at scale 0.5: the JAX bits")
+
+
+def _quant_timing(path, dev, gpu):
+    """(e) B=1024: each configuration's main path (`_drive`: fresh
+    engines, QUANT_TICKS captured ticks, launch counts zeroed before and
+    read after — rvq_encode launched, no conv-stack kernel on the plain
+    configurations — device µs and CUDA kernels per replayed tick from the
+    profiler), the memory its engines hold and its run's peak; then
+    encode + wire + decode wall time per captured tick, p50/p99, in
+    alternating turns (the configurations in order, then reversed,
+    QUANT_TIMED ticks each).  Nothing here is gated but the main path's
+    checks.  → (launches, per-tick launches of the first five)."""
+    import torch
+
+    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
+    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+
+    launches, per_tick, runs, lines = {}, {}, {}, []
+    for i, (name, kw) in enumerate(QUANT_CONFIGS):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        enc = EncoderEngine(16000, path, device=dev, **kw)
+        dec = DecoderEngine(16000, path, device=dev, **kw)
+        if kw["backend"] == "kernel":
+            kernels = (conv_stack.KERNELS_F32 + conv_stack.CORE_F32
+                       + rvq_kernel.KERNELS)
+        else:
+            kernels = list(rvq_kernel.KERNELS) if i < 5 else []
+        counts, ticks, summary, tick = _drive(enc, dec, kernels, BATCH,
+                                              QUANT_TICKS, dev, None)
+        held = torch.cuda.memory_allocated(dev) - base
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if i < 5:
+            for n, c in counts.items():
+                launches[n] = launches.get(n, 0) + c
+                per_tick[n] = per_tick.get(n, 0) + ticks[n]
+        runs[name] = [enc, dec, enc.init_state(BATCH),
+                      dec.init_state(BATCH), []]
+        lines.append(f"{name}: {tick['device_us']:.1f} device µs in "
+                     f"{tick['kernels']:g} CUDA kernels per captured tick, "
+                     f"engines and graphs hold {held / 2**20:.0f} MiB, run "
+                     f"peak {peak / 2**20:.0f} MiB; {summary}")
+    audio, received = _inputs(BATCH, QUANT_TIMED, dev)
+    for run in runs.values():  # both ping-pong trees captured
+        for t in range(2):
+            _, _, run[2], run[3], _ = _tick(run[0], run[1], run[2], run[3],
+                                            audio[t], received[t], 120)
+    for name in [n for n, _ in QUANT_CONFIGS] + [n for n, _ in
+                                                 QUANT_CONFIGS][::-1]:
+        enc, dec, es, ds, times = runs[name]
+        for t in range(QUANT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, es, ds, _ = _tick(enc, dec, es, ds, audio[t], received[t],
+                                    120)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[name][2:4] = [es, ds]
+    walls = "; ".join(
+        f"{name} p50 {np.percentile(r[4], 50):.3f} ms p99 "
+        f"{np.percentile(r[4], 99):.3f} ms" for name, r in runs.items())
+    print(f"quant (e): B={BATCH} per captured tick, islands fixture, 16 kHz "
+          f"[{gpu}]: " + " | ".join(lines))
+    print(f"quant (e): B={BATCH} encode+wire+decode wall time per captured "
+          f"tick, {2 * QUANT_TIMED} ticks each in alternating turns [{gpu}]:"
+          f" {walls}; card peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB since the "
+          f"last reset")
+    return launches, per_tick
+
+
+def phase_quant(dev, gpu):
+    """Phase 15: the quantized modes on the islands fixture at full width
+    (tests/golden/synthetic_lyra_islands/full): int8 and fakequant, int8
+    state storage and fp8 boundaries, through the engines on the plain
+    backend, which alone runs them.  → (launches, per-tick launches) of
+    (e)'s main-path runs."""
+    t_phase = time.time()
+    path = ISLANDS_FIXTURE
+    print(f"quant (a): ok, {_quant_ops(path, dev)}")
+    cpu_audio = {}
+    for mode in ("int8", "fakequant"):
+        line, cpu_audio[mode] = _quant_engines(
+            path, dev, {"mode": mode, "backend": "plain"})
+        print(f"quant (b) {mode}: ok, card vs CPU over {QUANT_HOPS} hops at "
+              f"B={QUANT_BATCH}: {line}")
+    ctl = _hop_lsd(cpu_audio["fakequant"], cpu_audio["int8"])
+    check(ctl.mean() >= QUANT_LSD_MEAN and ctl.max() >= QUANT_LSD_MAX,
+          f"quant (b): the control passes the LSD bars (mean "
+          f"{ctl.mean():.6f}, max {ctl.max():.6f} dB), which then tell "
+          f"nothing")
+    print(f"quant (b) control: ok, the CPU's fakequant audio vs its int8 "
+          f"audio fails the bars: per-hop LSD mean {ctl.mean():.6f} max "
+          f"{ctl.max():.6f} dB (bars {QUANT_LSD_MEAN} / {QUANT_LSD_MAX})")
+    print(f"quant (c): ok, {_quant_state(path, dev)}")
+    print(f"quant (d): ok, {_fp8_casts(dev)}")
+    for mode in ("float", "bf16"):
+        line, _ = _quant_engines(path, dev, {"mode": mode, "backend": "plain",
+                                             "boundary_store": "f8"},
+                                 gate=False)
+        print(f"quant (d) f8 {mode}: card vs CPU over {QUANT_HOPS} hops at "
+              f"B={QUANT_BATCH} (printed, not gated): {line}")
+    launches, per_tick = _quant_timing(path, dev, gpu)
+    print(f"quant: phase 15 took {time.time() - t_phase:.1f} s")
+    return launches, per_tick
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-out", default=None,
@@ -3691,12 +4192,16 @@ def main(argv=None) -> int:
         per_tick[name] = per_tick.get(name, 0) + ticks[name]
     phase_fleet(path, dev, gpu)
     phase_sharding(path, gpu)
+    counts, ticks = phase_quant(dev, gpu)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+        per_tick[name] = per_tick.get(name, 0) + ticks[name]
 
     # Per hop at B=1024: eager medians, then graph-replay medians, and the
-    # RVQ kernel's cold-L2 single launch; the launches of phases 6-7's runs
-    # and per replayed tick.  The conv kernels' library call is one cuDNN
-    # call (TF32 off) with the weights laid out beforehand; no single
-    # PyTorch call computes the RVQ search.
+    # RVQ kernel's cold-L2 single launch; the launches of phases 6, 7, 12
+    # and 15's runs and per replayed tick.  The conv kernels' library call
+    # is one cuDNN call (TF32 off) with the weights laid out beforehand; no
+    # single PyTorch call computes the RVQ search.
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

@@ -31,22 +31,32 @@ either device.  The JAX engines' names map onto these (`BACKEND_NAMES`):
 lowering, is `"plain"`.  The constructors take the JAX engines' parameters
 in the JAX order; `device` is keyword-only.
 
-`mode` is "float" or "bf16" (the JAX package's serving mode: the conv
+`mode` is "float", "bf16" (the JAX package's serving mode: the conv
 stacks compute in bf16 and the decoder's RVQ decode rounds the codebooks
-to bf16).  `sample_rate_hz` is any of `config.SUPPORTED_SAMPLE_RATES`: the
-codec runs at 16 kHz and a `"resampler"` state leaf carries the
-polyphase filter's history at the stream's rate, as in the JAX engines.
+to bf16), "int8" (TFLite's integer-kernel arithmetic in the int8 islands)
+or "fakequant" (float ops snapped to the int8 grid).
+`state_compression="int8"` stores the conv stacks' state between steps as
+int8 with a per-stream scale (nested `{"q", "s"}` leaves; half the bytes
+of a snapshot), and `boundary_store="f8"` stores the graphs' large
+intermediates as fp8 e4m3 inside a step.  These four run their graphs on
+the plain backend only, as the JAX package's run on its xla lowering: the
+kernel backend refuses them with a ValueError that names
+`backend="plain"`.  Their RVQ search, which they do not change, runs on its
+kernel (`rvq_encode`) all the same.
+
+`sample_rate_hz` is any of `config.SUPPORTED_SAMPLE_RATES`: the codec runs
+at 16 kHz and a `"resampler"` state leaf carries the polyphase filter's
+history at the stream's rate, as in the JAX engines.
 
 Both engines run on the card unless `device=` names another device; without
 a card the default raises (utils/device.py), so CPU callers pass
 `device="cpu"`.
 
-Differences from the JAX engines: int8 and fakequant modes, int8 state
-storage and fp8 boundaries are not ported and are refused; comfort noise
-is always synthesized, so `gate_idle_stages` is accepted and changes no
-bit (the JAX engine skips it with a `lax.cond` when no stream needs it —
-the masked result is bit-identical, and testing `any()` on the host would
-cost a device sync every tick).
+Differences from the JAX engines: comfort noise is always synthesized,
+so `gate_idle_stages` is accepted and changes no bit (the JAX engine skips
+it with a `lax.cond` when no stream needs it — the masked result is
+bit-identical, and testing `any()` on the host would cost a device sync
+every tick).
 """
 
 from __future__ import annotations
@@ -73,7 +83,12 @@ from lyra_tpu_torch.models.streaming import (
     SoundStreamEncoder,
     mask_tree,
 )
-from lyra_tpu_torch.tflite.executor import compute_dtype
+from lyra_tpu_torch.ops.fused_stack import refuse_kernel_backend
+from lyra_tpu_torch.tflite.executor import (
+    QUANT_MODES,
+    check_boundary,
+    compute_dtype,
+)
 from lyra_tpu_torch.utils.capture import GraphCache, as_input, replay
 from lyra_tpu_torch.utils.device import resolve
 
@@ -116,13 +131,13 @@ def _checked_common(sample_rate_hz: int, model_path: str, backend: str,
     if backend not in BACKEND_NAMES:
         raise ValueError(f"backend must be one of {sorted(BACKEND_NAMES)}, "
                          f"got {backend!r}")
-    compute_dtype(mode)  # float and bf16; int8 / fakequant raise
-    if state_compression is not None:
-        raise NotImplementedError(
-            "state_compression: int8 state storage is not ported")
-    if boundary_store is not None:
-        raise NotImplementedError(
-            "boundary_store: fp8 boundary storage is not ported")
+    compute_dtype(mode)  # an unknown mode raises
+    if state_compression not in (None, "int8"):
+        raise ValueError(
+            f"unsupported state_compression {state_compression!r}")
+    check_boundary(mode, boundary_store, 1.0)
+    if BACKEND_NAMES[backend] == "kernel":
+        refuse_kernel_backend(mode, state_compression, boundary_store)
     return BACKEND_NAMES[backend]
 
 
@@ -235,17 +250,21 @@ class DecoderEngine(_Compiled):
             sample_rate_hz=sample_rate_hz, model_path=model_path, mode=mode,
             backend=backend, feature_estimator=feature_estimator,
             max_bitrate=max_bitrate, gate_idle_stages=gate_idle_stages,
-            emit_dtype=emit_dtype)
+            state_compression=state_compression,
+            boundary_store=boundary_store, emit_dtype=emit_dtype)
         self.device = device = resolve(device)
         self.backend = backend
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self._emit_int16 = emit_dtype == "int16"
         self.gan = LyraGanModel(model_path, backend=backend, mode=mode,
-                                device=device)
+                                device=device, state_dtype=state_compression,
+                                boundary_store=boundary_store)
         self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
         self._max_stages = _max_stages(self.rvq, max_bitrate)
-        self._decode_dtype = compute_dtype(mode)
+        # The JAX engine's: bf16 codewords in bf16 mode, else float32.
+        self._decode_dtype = (torch.bfloat16 if mode == "bf16"
+                              else torch.float32)
         self.resampler = _resampler(config.INTERNAL_SAMPLE_RATE,
                                     sample_rate_hz, device)
         self.cng = ComfortNoiseGenerator(config.INTERNAL_SAMPLE_RATE,
@@ -379,16 +398,25 @@ class EncoderEngine(_Compiled):
         self._ctor = dict(
             sample_rate_hz=sample_rate_hz, model_path=model_path,
             enable_dtx=enable_dtx, mode=mode, backend=backend,
-            max_bitrate=max_bitrate)
+            max_bitrate=max_bitrate, state_compression=state_compression,
+            boundary_store=boundary_store)
         self.device = device = resolve(device)
         self.backend = backend
         self.sample_rate_hz = sample_rate_hz
         self.hop_samples = config.num_samples_per_hop(sample_rate_hz)
         self.enable_dtx = enable_dtx
-        self.soundstream = SoundStreamEncoder(model_path, backend=backend,
-                                              mode=mode, device=device)
+        self.soundstream = SoundStreamEncoder(
+            model_path, backend=backend, mode=mode, device=device,
+            state_dtype=state_compression, boundary_store=boundary_store)
         self.rvq = ResidualVectorQuantizer.from_model_path(model_path, device)
-        self._rvq_method = "kernel" if backend == "kernel" else "fast"
+        # The "fast" torch search in the plain reference of float and bf16;
+        # the kernel on the kernel backend and in the configurations only
+        # the plain backend runs (their graphs have no kernel; the search
+        # does not change with them).
+        plain_only = (mode in QUANT_MODES or state_compression is not None
+                      or boundary_store is not None)
+        self._rvq_method = ("kernel" if backend == "kernel" or plain_only
+                            else "fast")
         self._max_stages = _max_stages(self.rvq, max_bitrate)
         self.noise = (NoiseEstimator(config.INTERNAL_SAMPLE_RATE, device=device)
                       if enable_dtx else None)

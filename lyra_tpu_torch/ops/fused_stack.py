@@ -60,7 +60,7 @@ import torch
 from lyra_tpu_torch.ops import conv_stack, cuda_build
 from lyra_tpu_torch.tflite import executor
 from lyra_tpu_torch.tflite import model as tfl
-from lyra_tpu_torch.tflite.executor import GraphFn, State
+from lyra_tpu_torch.tflite.executor import QUANT_MODES, GraphFn, State
 
 
 def _mapped_shape(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -188,12 +188,30 @@ def _plain_call(launch: FusedLaunch) -> Callable:
     return lambda x: launch.fn(x, launch.w, launch.bias, *launch.extra)
 
 
+def refuse_kernel_backend(mode: str, state_dtype=None,
+                          boundary_store=None) -> None:
+    """The kernel backend runs float and bf16 with float state: the
+    quantized modes, int8 state storage and fp8 boundaries are refused
+    (the JAX fused backend's ValueError), naming the backend that runs
+    them."""
+    what = ([f"mode={mode!r}"] if mode in QUANT_MODES else []) + (
+        [f"state_dtype={state_dtype!r}"] if state_dtype is not None else []
+    ) + ([f"boundary_store={boundary_store!r}"]
+         if boundary_store is not None else [])
+    if what:
+        raise ValueError(
+            f"{', '.join(what)} runs on backend=\"plain\" only: the kernel "
+            f"backend (the JAX backend='fused') runs float and bf16 with "
+            f"uncompressed state")
+
+
 class FusedStack:
     """Same contract as GraphFn for a 1-input/1-output streaming graph:
     `(state, x) → (y, new_state)` with x and y batch-native in graph shape."""
 
     def __init__(self, path: str, signature: str = "serving_default",
                  mode: str = "float", device=None):
+        refuse_kernel_backend(mode)
         self.graph = GraphFn(tfl.load(path), signature, mode=mode,
                              device=device)
         gl = self.graph
@@ -817,7 +835,10 @@ class FusedStack:
         # TF32 in cuDNN by default, so a process that does not turn it off
         # (a spawned serving host) would otherwise run the float edges at
         # TF32 precision and give other bits than one that does.  The
-        # plain executor (the reference) keeps cuDNN's choice.
+        # plain executor keeps cuDNN's choice in float and bf16, where it
+        # is the reference; in the configurations it alone serves (int8,
+        # fakequant, fp8 boundaries, int8 state storage) it pins its convs
+        # the same way (executor.GraphFn._pinned).
         return torch.backends.cudnn.flags(
             enabled=True, deterministic=True, allow_tf32=False)
 

@@ -12,6 +12,10 @@ total row (reference: lyra_benchmark_lib.cc:199-293, 2000 frames default,
 axis the reference doesn't have: `--batch` to measure batched throughput
 and derived concurrent real-time streams per chip.
 
+The models run on the kernel backend in float and bf16, and on the plain
+backend in fakequant (the quantized modes have no kernel: the JAX tool
+runs them on its xla lowering); the report names the backend.
+
 Usage:
     python -m lyra_tpu_torch.tools.benchmark --num_cond_vectors=2000 \
         [--batch=1] [--csv=/tmp/benchmarks/lyra_tpu_torch.csv] [--model_path=DIR]
@@ -87,12 +91,13 @@ def run_benchmark(num_cond_vectors: int = 2000, batch: int = 1,
 
     from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
     from lyra_tpu_torch.models.streaming import LyraGanModel, SoundStreamEncoder
-    from lyra_tpu_torch.tflite.executor import compute_dtype
+    from lyra_tpu_torch.tflite.executor import QUANT_MODES, compute_dtype
     from lyra_tpu_torch.utils.capture import GraphCache, replay
     from lyra_tpu_torch.utils.device import resolve
 
     dev = resolve(device)
-    compute_dtype(mode)  # float and bf16, as the engines; fakequant raises
+    compute_dtype(mode)  # an unknown mode raises
+    backend = "plain" if mode in QUANT_MODES else "kernel"
     hop = config.num_samples_per_hop(config.INTERNAL_SAMPLE_RATE)
     nq = num_bits // config.BITS_PER_QUANTIZER
     rng = np.random.RandomState(0)
@@ -102,9 +107,10 @@ def run_benchmark(num_cond_vectors: int = 2000, batch: int = 1,
     # (reference: lyra_benchmark.cc:34-41, lyra_benchmark_lib.cc:85-162 —
     # null component → std::vector<float>(kNumFeatures, 0) etc., timing row
     # still recorded).
-    soundstream = (SoundStreamEncoder(model_path, mode=mode, device=dev)
+    soundstream = (SoundStreamEncoder(model_path, mode=mode, device=dev,
+                                      backend=backend)
                    if benchmark_feature_extraction else None)
-    gan = (LyraGanModel(model_path, mode=mode, device=dev)
+    gan = (LyraGanModel(model_path, mode=mode, device=dev, backend=backend)
            if benchmark_generative_model else None)
     rvq = (ResidualVectorQuantizer.from_model_path(model_path, dev)
            if benchmark_quantizer else None)
@@ -205,7 +211,7 @@ def run_benchmark(num_cond_vectors: int = 2000, batch: int = 1,
                     _time_stage(fn, num_cond_vectors, sync))
 
     total_mean = sum(r.mean_us for r in rows.values())
-    lines = []
+    lines = [f"mode {mode}, backend {backend}"]
     for name, r in rows.items():
         lines.append(
             f"{name:20s} max: {r.max_us:9.1f} us  min: {r.min_us:9.1f} us  "
@@ -231,7 +237,7 @@ def run_benchmark(num_cond_vectors: int = 2000, batch: int = 1,
                         f"{r.stdev_us},{r.num_calls}\n")
 
     return {"rows": rows, "total_mean_us": total_mean,
-            "streams_per_chip": streams, "batch": batch}
+            "streams_per_chip": streams, "batch": batch, "backend": backend}
 
 
 def main(argv=None, *, device=None) -> int:
@@ -248,8 +254,8 @@ def main(argv=None, *, device=None) -> int:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="Write a torch.profiler trace to DIR.")
     p.add_argument("--mode", default="float", choices=["float", "fakequant", "bf16"],
-                   help="Conv compute mode (fakequant is not ported and "
-                        "is refused).")
+                   help="Conv compute mode (fakequant runs on the plain "
+                        "backend).")
     # Per-stage toggles (reference: lyra_benchmark.cc:34-41). absl-style
     # bools: --benchmark_quantizer=false / true / 1 / 0.
     for flag, doc in (

@@ -250,13 +250,16 @@ def test_bf16_engines_match_jax_stage_by_stage(jax_bf16_run, backend):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"mode": "int8"}, NotImplementedError),
-    ({"mode": "fakequant"}, NotImplementedError),
-    ({"state_compression": "int8"}, NotImplementedError),
-    ({"boundary_store": "f8"}, NotImplementedError),
-    ({"mode": "fp16"}, ValueError),
+    ({"mode": "int8"}, 'backend="plain"'),
+    ({"mode": "fakequant"}, 'backend="plain"'),
+    ({"state_compression": "int8"}, 'backend="plain"'),
+    ({"boundary_store": "f8"}, 'backend="plain"'),
+    ({"mode": "fp16"}, "unknown mode"),
 ])
 def test_engines_refuse_unported_modes(kwargs, error):
+    """The kernel backend (the default) runs float and bf16: the quantized
+    modes, int8 state and fp8 boundaries run on backend="plain" only (the
+    JAX fused backend's ValueError); an unknown mode is refused."""
     for engine in (EncoderEngine, DecoderEngine):
-        with pytest.raises(error):
+        with pytest.raises(ValueError, match=error):
             engine(16000, SMALL, **kwargs)

@@ -1020,3 +1020,37 @@ def test_sharded_engines_on_two_cards_match_one_engine(cuda, mode, rate):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
     _sharded_vs_one_engine(["cuda:0", "cuda:1"], mode, rate)
+
+
+# -- the quantized modes (tflite/executor.py int8 / fakequant / f8) -----------
+
+@pytest.mark.parametrize("kw", [{"mode": "int8"}, {"mode": "fakequant"},
+                                {"boundary_store": "f8"},
+                                {"mode": "bf16", "boundary_store": "f8"}],
+                         ids=["int8", "fakequant", "f8", "f8-bf16"])
+@pytest.mark.parametrize("name,shape", [("soundstream_encoder", (320,)),
+                                        ("lyragan", (1, 64))])
+def test_quant_graphs_ignore_tf32(cuda, name, shape, kw):
+    """The modes only the plain lowering serves pin their convs to cuDNN's
+    deterministic algorithms without TF32: 3 hops at B=64 on the full
+    islands fixture give the same bits with torch.backends.cudnn.allow_tf32
+    on and off (chip_smoke's phase 15 holds the card against the CPU)."""
+    path = os.path.join(ISLANDS, "full", f"{name}.tflite")
+    scale = 0.5 if name == "soundstream_encoder" else 1.0
+    g = load_graph(path, device=cuda, boundary_scale=scale, **kw)
+    rng = np.random.default_rng(17)
+    xs = [_t(rng.normal(0.0, 0.1, (64,) + shape), cuda) for _ in range(3)]
+    outs = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            st, ys = g.init_state(64), []
+            for x in xs:
+                o, st = g(st, input_audio=x)
+                ys.append(o["output_0"])
+            outs.append(ys)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(y).all()) for y in outs[0])

@@ -247,12 +247,18 @@ def test_conv_wrappers_run_plain_versions_on_cpu():
     assert [k.launches for k in conv_stack.KERNELS] == before
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": "int8"},
-                                    {"mode": "fakequant"},
-                                    {"boundary_store": "f8"}])
+@pytest.mark.parametrize("kwargs", [{"mode": "int8",
+                                     "boundary_store": "f8"},
+                                    {"mode": "fakequant",
+                                     "boundary_store": "f8"},
+                                    {"boundary_store": "int4"}])
 def test_unported_modes_are_refused(kwargs):
+    """fp8 boundaries only over float and bf16 (the quantized modes define
+    their own boundary storage), and no other boundary format: the JAX
+    lowering's ValueErrors (tests/test_torch_quant.py holds the modes
+    themselves against it)."""
     mdef = tfl.load(os.path.join(SMALL, "lyragan.tflite"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="boundary_store"):
         executor.GraphFn(mdef, device="cpu", **kwargs)
 
 
@@ -345,6 +351,7 @@ def _code(path: str, name: str | None = None) -> str:
     ("tools/fleet.py", None),
     ("tools/fleet_main.py", None),
     ("client.py", None),
+    ("tools/probe_xnnpack_divergence.py", None),
 ])
 def test_copied_modules_match_jax_package(module, name):
     """The framework-free modules the port copies are the JAX package's

@@ -638,8 +638,17 @@ def test_fleet_caller_end_to_end_with_live_migration(tmp_path):
 
         _stream(send, 20, recv)
         deadline = time.time() + HANG
+        tick = 20
         while not all(got.values()):
             assert time.time() < deadline, "no downlink PCM from host A"
+            # The uplink goes on, as a caller's does: a host that ticked
+            # past the callers' first sequences before they arrived drops
+            # them as near-late until 25 in a row resync its schedule
+            # (native/jitter_buffer.cc, kNearLateResyncAfter), and with
+            # --echo reply a slot without an accepted datagram has no
+            # route for its downlink.
+            send(tick % len(pkts))
+            tick += 1
             recv()
             time.sleep(0.02)
         assert all(len(p) == PCM for g in got.values() for p in g.values())

@@ -5,8 +5,10 @@ needs from the JAX package.  A subprocess installs a `sys.meta_path` finder
 that raises on any import of jax, jaxlib, ml_dtypes or the top-level
 `lyra_tpu` package (exactly that name: `lyra_tpu_torch` passes), imports
 every module of lyra_tpu_torch, builds both engines on the CPU from the
-small synthetic fixture and runs one tick: float at 16 kHz, then bf16 at
-48 kHz (the resampler and the bf16 paths); then a server pair ticks on the
+small synthetic fixture and runs one tick: float at 16 kHz, then on the
+small islands fixture in int8, fakequant, with int8 state and with fp8
+boundaries in bf16 (the plain backend), then bf16 at 48 kHz (the
+resampler and the bf16 paths); then a server pair ticks on the
 wire, snapshots a bf16 decoder and restores it bit for bit; then the
 port's serve_main serves a decode run over the native ingest and egress
 (transport, control plane, stats sink and the bridge's modules among the
@@ -62,8 +64,9 @@ _CHILD = textwrap.dedent("""
         "examples", "examples.drain_migrate", "examples.loopback_call",
         "examples.udp_call", "examples.conference_call",
         "examples.rate_adapt_call", "examples.multihost_migrate",
-        "parallel", "parallel.sharding", "parallel.dryrun")} <= set(
-            modules)
+        "parallel", "parallel.sharding", "parallel.dryrun",
+        "tools.probe_int8_rounding", "tools.probe_xnnpack_divergence")} <= \
+        set(modules)
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler
@@ -82,6 +85,22 @@ _CHILD = textwrap.dedent("""
     out, cn, ds = dec.step(ds, back, torch.tensor([True, False]))
     assert out.shape == (2, 320) and bool(torch.isfinite(out).all())
     state.state_to_numpy(ds)
+
+    import os
+    islands = os.path.join(os.path.dirname(os.path.dirname(path)),
+                           "synthetic_lyra_islands", "small")
+    for kw in ({"mode": "int8"}, {"mode": "fakequant"},
+               {"state_compression": "int8"},
+               {"boundary_store": "f8", "mode": "bf16"}):
+        enc = EncoderEngine(16000, islands, backend="plain", device="cpu",
+                            **kw)
+        dec = DecoderEngine(16000, islands, backend="plain", device="cpu",
+                            **kw)
+        idx, _, _ = enc.step(enc.init_state(2), audio, 16)
+        out, _, ds = dec.step(dec.init_state(2), idx,
+                              torch.tensor([True, True]))
+        assert bool(torch.isfinite(out).all()), kw
+        state.state_to_numpy(ds)
 
     enc = EncoderEngine(48000, path, mode="bf16", device="cpu")
     dec = DecoderEngine(48000, path, mode="bf16", device="cpu")

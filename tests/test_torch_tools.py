@@ -11,7 +11,8 @@ fixture from numpy-seeded inputs, on the CPU.
     decoder (the JAX test's bar: the engine's crossfade is float32, the
     facade's float64), inputs with the same stem not clobbered;
   * run_benchmark's rows, CSV, profiler trace and stage toggles, the
-    toggles' garbage flag, fakequant refused; melspec_benchmark runs.
+    toggles' garbage flag, fakequant on the plain backend; melspec_benchmark
+    runs.
 """
 
 import glob
@@ -237,9 +238,9 @@ def test_benchmark_toggles_flags_and_modes(capsys):
         assert row in out
     with pytest.raises(SystemExit):
         benchmark.main(["--benchmark_quantizer=maybe"], **CPU)
-    with pytest.raises(NotImplementedError, match="fakequant"):
-        benchmark.main(["--mode=fakequant", "--num_cond_vectors=2",
-                        f"--model_path={SMALL}"], **CPU)
+    assert benchmark.main(["--mode=fakequant", "--num_cond_vectors=2",
+                           f"--model_path={SMALL}"], **CPU) == 0
+    assert "mode fakequant, backend plain" in capsys.readouterr().out
     result = benchmark.run_benchmark(2, 1, 64, SMALL, mode="bf16",
                                      benchmark_feature_extraction=False,
                                      device="cpu")
