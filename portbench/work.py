@@ -1,0 +1,153 @@
+"""Operations and bytes of the tick's work, counted from the TFLite graphs
+(parsed by the reference's own reader), and the chip's peaks.
+
+The rules are chip_smoke.py's `_work` (d33c86f), applied to graph ops
+instead of the port's launches, so that a roofline reads the same work
+whatever implements it: each input row that some tap reads is read once,
+the weights and bias once, each output row the graph keeps written once,
+in the compute dtype (the bf16 configuration holds weights and
+activations in bf16).  A conv's operations are 2 × its multiply-adds over
+the output rows kept: a transpose conv whose output only a STRIDED_SLICE
+on the time axis reads counts the taps that land on the rows it keeps.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, Tuple
+
+import numpy as np
+
+from portbench.reference import tflite_model as tfl
+
+# Published peaks of one NVIDIA H100 SXM (dense, no sparsity), at its full
+# 700 W power limit.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES_S = 3.35e12
+MODELS = ("soundstream_encoder", "lyragan")
+CONVS = ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")
+CODES = 16  # codewords per RVQ stage
+FEATURES = 64
+
+
+def _graph(path: str) -> tfl.SubGraphDef:
+    mdef = tfl.load(path)
+    return mdef.subgraphs[mdef.signatures["serving_default"]["subgraph"]]
+
+
+def _kept_rows(sg: tfl.SubGraphDef, op, t_full: int) -> range:
+    """The output rows of `op` that its consumers read: a crop where every
+    consumer is a STRIDED_SLICE on the time axis (axis 1), else all."""
+    out = op.outputs[0]
+    users = [o for o in sg.ops if out in o.inputs]
+    lo, hi = t_full, 0
+    for u in users:
+        if u.name != "STRIDED_SLICE" or u.inputs[0] != out:
+            return range(t_full)
+        begin = sg.tensors[u.inputs[1]].data
+        end = sg.tensors[u.inputs[2]].data
+        strides = sg.tensors[u.inputs[3]].data
+        bm, em = u.options.get("begin_mask", 0), u.options.get("end_mask", 0)
+        if int(strides[1]) != 1:
+            return range(t_full)
+        b = 0 if bm & 2 else int(begin[1])
+        e = t_full if em & 2 else int(end[1])
+        lo, hi = min(lo, b), max(hi, e)
+    return range(lo, hi) if users else range(t_full)
+
+
+def conv_work(sg: tfl.SubGraphDef, op, batch: int,
+              elem: int) -> Tuple[float, float]:
+    """(operations, bytes) of one conv-family op over `batch` streams."""
+    opts, t = op.options, sg.tensors
+    if op.name == "TRANSPOSE_CONV":
+        w, x = t[op.inputs[1]], t[op.inputs[2]]
+        bias = t[op.inputs[3]] if len(op.inputs) > 3 else None
+        o_ch, k, _, i_ch = w.shape
+        s = opts["stride_h"]
+        t_in = x.shape[1]
+        keep = _kept_rows(sg, op, (t_in - 1) * s + k)
+        taps = [(r - kk) // s for r in keep
+                for kk in range(r % s, min(k, r + 1), s) if (r - kk) // s < t_in]
+        macs = len(taps) * i_ch * o_ch
+        rows_in, rows_out, c_in = len(set(taps)), len(keep), i_ch
+    else:
+        x, w = t[op.inputs[0]], t[op.inputs[1]]
+        bias = t[op.inputs[2]] if len(op.inputs) > 2 else None
+        t_in, c_in = x.shape[1], x.shape[3]
+        s, d = opts["stride_h"], opts.get("dilation_h", 1)
+        k = w.shape[1]
+        rows_out = (t_in - (k - 1) * d - 1) // s + 1
+        rows_in = len({r * s + kk * d for r in range(rows_out)
+                       for kk in range(k)})
+        if op.name == "DEPTHWISE_CONV_2D":
+            o_ch = w.shape[3]
+            macs = rows_out * o_ch * k
+        else:
+            o_ch = w.shape[0]
+            macs = rows_out * o_ch * k * w.shape[2] * w.shape[3]
+    nbytes = elem * (batch * (rows_in * c_in + rows_out * o_ch)
+                     + int(np.prod(w.shape))
+                     + (int(np.prod(bias.shape)) if bias is not None else 0))
+    return 2.0 * batch * macs, float(nbytes)
+
+
+def op_work(sg: tfl.SubGraphDef, op, batch: int,
+            elem: int) -> Tuple[float, float]:
+    """(operations, bytes) of a graph op that does work of its own in the
+    conv-stack core: a conv, or an elementwise / gather op the core runs
+    as a kernel of its own (its inputs read once, its output written
+    once; operations not counted)."""
+    if op.name in CONVS:
+        return conv_work(sg, op, batch, elem)
+    tensors = [sg.tensors[i] for i in (*op.inputs, *op.outputs) if i >= 0]
+    nbytes = sum(elem * int(np.prod(tt.shape)) * (
+        1 if tt.data is not None else batch) for tt in tensors)
+    return 0.0, float(nbytes)
+
+
+class Work:
+    """The cell's work per tick at its batch and dtype."""
+
+    def __init__(self, config: dict, streams: int, bits: int):
+        self.dtype = "bfloat16" if config["mode"] == "bf16" else "float32"
+        self.elem = 2 if self.dtype == "bfloat16" else 4
+        self.peak = PEAK_FLOPS[self.dtype]
+        self.streams, self.stages = streams, bits // 4
+        self.graphs = {m: _graph(os.path.join(config["model_dir"],
+                                              m + ".tflite")) for m in MODELS}
+
+    def bound_s(self, flop: float, nbytes: float, peak: float) -> float:
+        return max(flop / peak, nbytes / PEAK_BYTES_S)
+
+    def core_bound_s(self, core_ops: Dict[str, Iterable[int]]) -> float:
+        """Σ over the given ops of each graph of max(operations / peak,
+        bytes / bandwidth), in the configuration's dtype."""
+        total = 0.0
+        for model, ops in core_ops.items():
+            sg = self.graphs[model]
+            for i in ops:
+                total += self.bound_s(
+                    *op_work(sg, sg.ops[i], self.streams, self.elem),
+                    self.peak)
+        return total
+
+    def rvq(self) -> Tuple[float, float]:
+        """(operations, bytes) of one RVQ search over the stages the mix's
+        packets carry: per stage 16 dot products of 64 and the residual
+        update; features, codebooks and ‖c‖² read once, codes written
+        once, float32."""
+        b, s = self.streams, self.stages
+        flop = b * s * (CODES * 2 * FEATURES + FEATURES)
+        nbytes = 4 * (b * FEATURES + s * CODES * (FEATURES + 1) + b * s)
+        return float(flop), float(nbytes)
+
+    def tick_flop(self) -> float:
+        """Model operations of one tick: 2 × the multiply-adds of every
+        conv-family op of both graphs, plus the RVQ search."""
+        total = self.rvq()[0]
+        for sg in self.graphs.values():
+            for op in sg.ops:
+                if op.name in CONVS:
+                    total += conv_work(sg, op, self.streams, self.elem)[0]
+        return total
