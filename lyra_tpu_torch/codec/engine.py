@@ -52,6 +52,16 @@ Both engines run on the card unless `device=` names another device; without
 a card the default raises (utils/device.py), so CPU callers pass
 `device="cpu"`.
 
+Each `_step_impl` marks its modules' boundaries for the tracer
+(utils/trace.py `mark`): the decoder's `dec.rvq_decode`, `dec.plc`,
+LyraGAN's `gan.*` (ops/fused_stack.py), `dec.gan_select`, `dec.cng`,
+`dec.crossfade`, `dec.noise`, `dec.resample` and `dec.out`; the encoder's
+`enc.in`, `enc.resample`, `enc.noise`, SoundStream's `ss.*`,
+`enc.ss_select` and `enc.rvq`.  Markers launch only while tracing is on.
+The decoder's step counts `dec.rows_run`, the rows its loss concealment
+and comfort noise run over (every row: both are masked per row, not
+skipped).
+
 Differences from the JAX engines: comfort noise is always synthesized,
 so `gate_idle_stages` is accepted and changes no bit (the JAX engine skips
 it with a `lax.cond` when no stream needs it — the masked result is
@@ -89,6 +99,7 @@ from lyra_tpu_torch.tflite.executor import (
     check_boundary,
     compute_dtype,
 )
+from lyra_tpu_torch.utils import trace
 from lyra_tpu_torch.utils.capture import GraphCache, as_input, replay
 from lyra_tpu_torch.utils.device import resolve
 
@@ -318,9 +329,13 @@ class DecoderEngine(_Compiled):
                    received: torch.Tensor):
         """The step itself, pure and eager over device tensors: what the
         card's graph captures, and the CPU path."""
+        trace.mark("dec.rvq_decode", indices)
         received = received.bool()
         lossy = self.rvq.decode(indices, dtype=self._decode_dtype,
                                 max_stages=self._max_stages)
+        trace.mark("dec.plc", indices)
+        # The rows loss concealment and comfort noise run over: all of them.
+        trace.count("dec.rows_run", lossy.shape[0])
         est_state = self.estimator.update(state["est"], lossy, received)
 
         # PLC state update (reference: lyra/lyra_decoder.cc:249-265).
@@ -342,15 +357,18 @@ class DecoderEngine(_Compiled):
         feats = torch.where(received[:, None], lossy,
                             self.estimator.estimate(est_state))
         model_unit, gan_state = self.gan.decode_hop(state["gan"], feats)
+        trace.mark("dec.gan_select", indices)
         gan_state = mask_tree(run_model, gan_state, state["gan"])
         model_hop = dsp_utils.unit_to_int16(model_unit).float()
 
+        trace.mark("dec.cng", indices)
         cng_hop, cng_state = self.cng.generate_hop(
             state["cng"], self.noise.noise_estimate(state["noise"]))
         cng_hop = dsp_utils.clip_to_int16(cng_hop).float()
         cng_state = mask_tree(run_cng, cng_state, state["cng"])
 
         # cos² crossfade (reference: lyra/lyra_decoder.cc:342-373).
+        trace.mark("dec.crossfade", indices)
         w = fade_weights(state["fade"], fade_dir, INTERNAL_HOP)
         blended = w * model_hop + (1.0 - w) * cng_hop
         both = run_model & run_cng
@@ -362,6 +380,7 @@ class DecoderEngine(_Compiled):
                            FADE_SAMPLES).to(torch.int32)
 
         # The noise estimator listens to received hops' model output only.
+        trace.mark("dec.noise", indices)
         noise_state = self.noise.receive_hop(state["noise"], model_hop)
         noise_state = mask_tree(received, noise_state, state["noise"])
 
@@ -375,9 +394,11 @@ class DecoderEngine(_Compiled):
             "fade_dir": fade_dir,
         }
         if self.resampler is not None:
+            trace.mark("dec.resample", indices)
             audio, new_state["resampler"] = self.resampler.resample(
                 state["resampler"], audio)
             audio = dsp_utils.clip_to_int16(audio).float()
+        trace.mark("dec.out", indices)
         is_comfort_noise = fade == FADE_SAMPLES
         if self._emit_int16:
             audio = audio.to(torch.int16)
@@ -462,13 +483,16 @@ class EncoderEngine(_Compiled):
         """The step itself, pure and eager over device tensors
         (num_quantizers [B] int32): what the card's graph captures, and
         the CPU path."""
+        trace.mark("enc.in", audio)
         new_state = dict(state)
         x = audio.float()
         if self.resampler is not None:
+            trace.mark("enc.resample", audio)
             x, new_state["resampler"] = self.resampler.resample(
                 state["resampler"], x)
             x = dsp_utils.clip_to_int16(x).float()
         if self.noise is not None:
+            trace.mark("enc.noise", audio)
             noise_state = self.noise.receive_hop(state["noise"], x)
             is_noise = self.noise.is_noise(noise_state)
             new_state["noise"] = noise_state
@@ -477,8 +501,10 @@ class EncoderEngine(_Compiled):
                                    device=self.device)
         feats, ss_state = self.soundstream.extract(
             state["soundstream"], dsp_utils.int16_to_unit(x))
+        trace.mark("enc.ss_select", audio)
         new_state["soundstream"] = mask_tree(~is_noise, ss_state,
                                              state["soundstream"])
+        trace.mark("enc.rvq", audio)
         indices = self.rvq.quantize(feats, num_quantizers,
                                     method=self._rvq_method,
                                     max_stages=self._max_stages)

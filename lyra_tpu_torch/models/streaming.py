@@ -95,6 +95,8 @@ class StreamingModel:
     `boundary_scale` is the power-of-two pre-scale of fp8 boundaries (the
     JAX models': 0.5 for SoundStream, 1.0 for LyraGAN)."""
 
+    SEGMENT: str | None = None  # the kernel backend's tracer segments
+
     def __init__(self, path: str, backend: str = "kernel",
                  mode: str = "float", device=None,
                  state_dtype: str | None = None,
@@ -104,7 +106,8 @@ class StreamingModel:
             raise ValueError(f"unsupported state_dtype {state_dtype!r}")
         if backend == "kernel":
             refuse_kernel_backend(mode, state_dtype, boundary_store)
-            self._run = FusedStack(path, mode=mode, device=device)
+            self._run = FusedStack(path, mode=mode, device=device,
+                                   segment=self.SEGMENT)
         elif backend == "plain":
             # Compressed state is served by the plain lowering alone.
             self._run = _PlainGraph(path, mode, device, boundary_store,
@@ -147,6 +150,8 @@ class StreamingModel:
 class SoundStreamEncoder(StreamingModel):
     """320 samples @16 kHz → 64 features per stream (unit-float audio in)."""
 
+    SEGMENT = "ss"
+
     def __init__(self, model_path: str, **kwargs):
         # boundary_scale 0.5: the encoder's depthwise-conv context concats
         # peak at amax 628 > fp8 e4m3's 448 (the JAX package's measurement);
@@ -161,6 +166,8 @@ class SoundStreamEncoder(StreamingModel):
 
 class LyraGanModel(StreamingModel):
     """64 features → 320 samples @16 kHz per stream (unit-float audio out)."""
+
+    SEGMENT = "gan"
 
     def __init__(self, model_path: str, **kwargs):
         # boundary_scale 1.0: LyraGAN's activations peak at amax 31, far

@@ -61,6 +61,7 @@ from lyra_tpu_torch.ops import conv_stack, cuda_build
 from lyra_tpu_torch.tflite import executor
 from lyra_tpu_torch.tflite import model as tfl
 from lyra_tpu_torch.tflite.executor import QUANT_MODES, GraphFn, State
+from lyra_tpu_torch.utils import trace
 
 
 def _mapped_shape(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -210,8 +211,14 @@ class FusedStack:
     `(state, x) → (y, new_state)` with x and y batch-native in graph shape."""
 
     def __init__(self, path: str, signature: str = "serving_default",
-                 mode: str = "float", device=None):
+                 mode: str = "float", device=None,
+                 segment: Optional[str] = None):
+        """`segment` names the stack for the tracer: a call marks
+        `<segment>.prologue`, `.core` and `.epilogue` (utils/trace.py),
+        None marks nothing."""
         refuse_kernel_backend(mode)
+        self._marks = (None if segment is None else tuple(
+            f"{segment}.{part}" for part in ("prologue", "core", "epilogue")))
         self.graph = GraphFn(tfl.load(path), signature, mode=mode,
                              device=device)
         gl = self.graph
@@ -845,6 +852,9 @@ class FusedStack:
     def __call__(self, state: State, x: torch.Tensor):
         """x: [B, *graph_input_shape[1:]] → ([B, *graph_output_shape[1:]],
         new_state)."""
+        marks = self._marks
+        if marks:
+            trace.mark(marks[0], x)
         env: Dict[int, torch.Tensor] = {self.input_idx: x.to(self.graph.dtype)}
         new_state = dict(state)
         with self._edges():
@@ -856,6 +866,8 @@ class FusedStack:
         states = {name: state[name].reshape(
             (b,) + _mapped_shape(self._state_shapes[name])).contiguous()
             for name in self._core_state_names}
+        if marks:
+            trace.mark(marks[1], x)
         with torch.profiler.record_function("fused_stack.core"):
             for launch in self.plan:
                 if isinstance(launch, CoreLaunch):
@@ -870,6 +882,8 @@ class FusedStack:
                     new_state[name] = side.view(
                         (b,) + tuple(self._state_shapes[name]))
                 core[launch.out] = y
+        if marks:
+            trace.mark(marks[2], x)
         for t, src in self._core_outputs.items():
             env[t] = core[src].view((b,) + tuple(self.sg.tensors[t].shape[1:]))
         with self._edges():

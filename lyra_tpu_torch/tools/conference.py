@@ -377,8 +377,8 @@ class ConferenceBridge:
         decoder's comfort-noise flags).  The decoded PCM and the mix stay
         on the device."""
         dec = self._dec
-        k, (pcm, is_cn) = dec._wire_run(packets, received, sizes,
-                                        submit=_launch)
+        (k, (pcm, is_cn)), _ = dec._wire_run(packets, received, sizes,
+                                             submit=_launch)
         cn = dec._io.fetch(k, [is_cn])
         active, rooms = self._dev_tables()
         mix, _ = dec.engine._run(self._mixer, ("mix", self.capacity), {},

@@ -52,9 +52,11 @@ from lyra_tpu_torch import packet as pkt
 from lyra_tpu_torch.tools.control_auth import AuthError, Verifier
 from lyra_tpu_torch.tools.jitter_buffer import JitterBuffer
 from lyra_tpu_torch.tools.stream_server import DecoderServer
+from lyra_tpu_torch.utils import trace
 from lyra_tpu_torch.utils.device import resolve
 
 _HDR = 6  # 2 B slot + 4 B seq, big-endian (examples/udp_call.py layout)
+_PERIOD_S = 0.020  # the tick grid
 
 
 # Shared with the fleet tier: one JSON snapshot per line + final record.
@@ -432,6 +434,33 @@ def _parse_echo(spec: str):
     return host, int(port)
 
 
+def _pace(next_tick: float) -> float:
+    """Sleep until the grid point `next_tick` (the `serve.pace` span); →
+    the next one.  A wake-up more than one period behind the grid counts
+    one `serve.late_ticks`."""
+    with trace.span("serve.pace"):
+        while time.perf_counter() < next_tick:
+            time.sleep(0.001)
+    now = time.perf_counter()
+    if now - next_tick > _PERIOD_S:
+        trace.count("serve.late_ticks")
+    return max(next_tick, now) + _PERIOD_S
+
+
+def _trace_report() -> dict:
+    """The tracer's record since the last report (it is drained): per
+    span, the count and the p50 / p95 of its self ms; the counters."""
+    spans, counts = trace.drain()
+    self_ms: dict = {}
+    for s, ns in zip(spans, trace.self_ns(spans)):
+        self_ms.setdefault(s[0], []).append(ns * 1e-6)
+    return {"spans": {name: {"n": len(v),
+                             "p50_ms": float(np.percentile(v, 50)),
+                             "p95_ms": float(np.percentile(v, 95))}
+                      for name, v in sorted(self_ms.items())},
+            "counts": dict(sorted(counts.items()))}
+
+
 def _serve_encode(args, _on_ready, _stop) -> int:
     """The reverse relay: UDP PCM hops in, lyra packets out.
 
@@ -502,7 +531,8 @@ def _serve_encode(args, _on_ready, _stop) -> int:
                 "ingest": ingest_stats,
                 "egress": (tx.stats() if tx is not None else {}),
                 **({"auth_rejects": ctl.auth_rejects}
-                   if ctl is not None and ctl._verifier else {})}
+                   if ctl is not None and ctl._verifier else {}),
+                **({"trace": trace_stats} if args.trace else {})}
 
     print(f"encoding {args.capacity} streams on UDP :{port} "
           f"(bitrate={args.bitrate}, ingest={args.ingest}, "
@@ -516,6 +546,7 @@ def _serve_encode(args, _on_ready, _stop) -> int:
     fresh = np.zeros(args.capacity, bool)
     datagrams = malformed = pcm_gaps = 0
     tick_ms = []
+    trace_stats: dict = {}
     ticks = 0
     t_end = (time.perf_counter() + args.seconds) if args.seconds else None
     next_tick = time.perf_counter()
@@ -525,9 +556,7 @@ def _serve_encode(args, _on_ready, _stop) -> int:
     try:
         while ((t_end is None or time.perf_counter() < t_end)
                and not (_stop is not None and _stop.is_set())):
-            while time.perf_counter() < next_tick:
-                time.sleep(0.001)
-            next_tick = max(next_tick, time.perf_counter()) + 0.02
+            next_tick = _pace(next_tick)
             if ctl is not None and ctl.poll(enc, lambda: _snapshot(256)):
                 break  # drained or told to quit
             if (next_snap is not None
@@ -542,41 +571,46 @@ def _serve_encode(args, _on_ready, _stop) -> int:
                 enc.save(args.snapshot)
             t0 = time.perf_counter()
 
-            if pcm is not None:
-                fresh = pcm.collect_into(audio)
-            else:
-                fresh[:] = False
-                while True:
-                    try:
-                        dgram, _ = rx.recvfrom(4096)
-                    except BlockingIOError:
-                        break
-                    slot = int.from_bytes(dgram[:2], "big")
-                    if (len(dgram) != _HDR + hop_bytes
-                            or slot >= args.capacity):
-                        malformed += 1  # counted event, never fatal
-                        continue
-                    audio[slot] = np.frombuffer(dgram[_HDR:], np.int16)
-                    fresh[slot] = True
-                    datagrams += 1
+            with trace.span("serve.collect"):
+                if pcm is not None:
+                    fresh = pcm.collect_into(audio)
+                else:
+                    fresh[:] = False
+                    while True:
+                        try:
+                            dgram, _ = rx.recvfrom(4096)
+                        except BlockingIOError:
+                            break
+                        slot = int.from_bytes(dgram[:2], "big")
+                        if (len(dgram) != _HDR + hop_bytes
+                                or slot >= args.capacity):
+                            malformed += 1  # counted event, never fatal
+                            continue
+                        audio[slot] = np.frombuffer(dgram[_HDR:], np.int16)
+                        fresh[slot] = True
+                        datagrams += 1
 
-            audio[~fresh] = 0  # lost mic hops encode as silence
-            pcm_gaps += int(args.capacity - fresh.sum())
-            out = enc.tick_wire_async(audio)
+                audio[~fresh] = 0  # lost mic hops encode as silence
+                pcm_gaps += int(args.capacity - fresh.sum())
+            with trace.span("serve.tick"):
+                out = enc.tick_wire_async(audio)
             tick_ms.append((time.perf_counter() - t0) * 1e3)
             if out is None:
                 continue  # pipeline priming
             wire, sizes = out
             if tx is not None:
-                if args.echo == "reply":
-                    tx.route_from_pump(pcm)
-                if red_tx is not None:
-                    wire, sizes = red_tx.frame(wire, sizes)
-                tx.send(wire, sizes, ticks)
+                with trace.span("serve.send"):
+                    if args.echo == "reply":
+                        tx.route_from_pump(pcm)
+                    if red_tx is not None:
+                        wire, sizes = red_tx.frame(wire, sizes)
+                    tx.send(wire, sizes, ticks)
             ticks += 1
 
             if time.perf_counter() >= next_report:
                 next_report += args.report_every
+                if args.trace:
+                    trace_stats = _trace_report()
                 snap = _snapshot(256)
                 sink.emit(snap)
                 print(f"ticks={ticks} tick_ms p50={snap['tick_ms_p50']:.1f} "
@@ -587,6 +621,8 @@ def _serve_encode(args, _on_ready, _stop) -> int:
         pass
     finally:
         enc.flush_wire_async()
+        if args.trace:
+            trace_stats = _trace_report()
         snap = {**_snapshot(None), "final": True}
         sink.emit(snap)
         sink.close()
@@ -710,7 +746,8 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
                 "egress": (tx.stats() if tx is not None else {}),
                 **({"auth_rejects": ctl.auth_rejects}
                    if ctl is not None and ctl._verifier else {}),
-                "bad_packets": int(bridge.bad_packets.sum())}
+                "bad_packets": int(bridge.bad_packets.sum()),
+                **({"trace": trace_stats} if args.trace else {})}
 
     print(f"bridging {args.capacity} participants in rooms of "
           f"{args.room_size} on UDP :{port} (ingest={args.ingest}, "
@@ -721,6 +758,7 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
         _on_ready(port)
 
     tick_ms = []
+    trace_stats: dict = {}
     ticks = 0
     occupied = 0
     t_end = (time.perf_counter() + args.seconds) if args.seconds else None
@@ -731,9 +769,7 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
     try:
         while ((t_end is None or time.perf_counter() < t_end)
                and not (_stop is not None and _stop.is_set())):
-            while time.perf_counter() < next_tick:
-                time.sleep(0.001)
-            next_tick = max(next_tick, time.perf_counter()) + 0.02
+            next_tick = _pace(next_tick)
             if ctl is not None and ctl.poll(
                     bridge, lambda: _snapshot(256),
                     transport_save=lambda: _transport_state(
@@ -755,29 +791,34 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
                     ingest, adaptive=args.adaptive is not None))
             t0 = time.perf_counter()
 
-            if pump is None:
-                _drain_python_rx(rx, jb, args.red)
-                pkts, received, sizes = jb.collect()
-            else:
-                pkts, received, sizes = pump.collect()
-            occupied = int(received.sum())
+            with trace.span("serve.collect"):
+                if pump is None:
+                    _drain_python_rx(rx, jb, args.red)
+                    pkts, received, sizes = jb.collect()
+                else:
+                    pkts, received, sizes = pump.collect()
+                occupied = int(received.sum())
 
-            out = bridge.tick_wire_async(pkts, received,
-                                         sizes.astype(np.int32))
+            with trace.span("serve.tick"):
+                out = bridge.tick_wire_async(pkts, received,
+                                             sizes.astype(np.int32))
             tick_ms.append((time.perf_counter() - t0) * 1e3)
             if out is None:
                 continue  # pipeline priming
             wire, out_sizes = out
             if tx is not None:
-                if args.echo == "reply":
-                    tx.route_from_pump(pump)
-                if red_tx is not None:
-                    wire, out_sizes = red_tx.frame(wire, out_sizes)
-                tx.send(wire, out_sizes, ticks)
+                with trace.span("serve.send"):
+                    if args.echo == "reply":
+                        tx.route_from_pump(pump)
+                    if red_tx is not None:
+                        wire, out_sizes = red_tx.frame(wire, out_sizes)
+                    tx.send(wire, out_sizes, ticks)
             ticks += 1
 
             if time.perf_counter() >= next_report:
                 next_report += args.report_every
+                if args.trace:
+                    trace_stats = _trace_report()
                 snap = _snapshot(256)
                 sink.emit(snap)
                 print(f"ticks={ticks} tick_ms p50={snap['tick_ms_p50']:.1f} "
@@ -789,6 +830,8 @@ def _serve_bridge(args, _on_ready, _stop) -> int:
         pass
     finally:
         bridge.flush_async()
+        if args.trace:
+            trace_stats = _trace_report()
         snap = {**_snapshot(None), "final": True}
         sink.emit(snap)
         sink.close()
@@ -946,6 +989,14 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
     p.add_argument("--room_size", type=int, default=4,
                    help="bridge mode: participants per room (slots are "
                         "partitioned consecutively).")
+    p.add_argument("--trace", action="store_true",
+                   help="Turn the tracer on (utils/trace.py): each stats "
+                        "record gains a \"trace\" dict, per span the "
+                        "p50/p95 self ms over the report interval "
+                        "(serve.collect, serve.tick, serve.send, "
+                        "serve.pace and the servers' own), and the "
+                        "counters (serve.late_ticks: wake-ups more than "
+                        "one 20 ms period behind the grid).")
     p.add_argument("--devices", type=int, default=1,
                    help="Shard the stream batch over the first N attached "
                         "cards (stream-axis mesh, no cross-card traffic "
@@ -1033,11 +1084,21 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
     args._device = resolve(device)
     if args.devices > 1:  # refused before any engine is built
         _shard_devices(args._device, args.devices)
-    if args.mode == "encode":
-        return _serve_encode(args, _on_ready, _stop)
-    if args.mode == "bridge":
-        return _serve_bridge(args, _on_ready, _stop)
+    if args.trace:
+        trace.enable()
+    try:
+        serve = {"encode": _serve_encode, "bridge": _serve_bridge,
+                 "decode": _serve_decode}[args.mode]
+        return serve(args, _on_ready, _stop)
+    finally:
+        if args.trace:
+            trace.disable()
+            trace.drain()
 
+
+def _serve_decode(args, _on_ready, _stop) -> int:
+    """The decode server: lyra packets in, int16 PCM out (the module
+    docstring)."""
     from lyra_tpu_torch.codec.engine import DecoderEngine
 
     dec = DecoderServer(args.capacity, engine=_maybe_shard(
@@ -1113,7 +1174,8 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
                 "egress": (tx.stats() if tx is not None else {}),
                 **({"auth_rejects": ctl.auth_rejects}
                    if ctl is not None and ctl._verifier else {}),
-                "bad_packets": int(dec.bad_packets.sum())}
+                "bad_packets": int(dec.bad_packets.sum()),
+                **({"trace": trace_stats} if args.trace else {})}
 
     print(f"serving {args.capacity} streams on UDP :{port} "
           f"(ingest={args.ingest}, echo={args.echo or 'none'}"
@@ -1123,6 +1185,7 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
         _on_ready(port)
 
     tick_ms = []
+    trace_stats: dict = {}
     ticks = 0
     occupied = 0
     t_end = (time.perf_counter() + args.seconds) if args.seconds else None
@@ -1133,9 +1196,7 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
     try:
         while ((t_end is None or time.perf_counter() < t_end)
                and not (_stop is not None and _stop.is_set())):
-            while time.perf_counter() < next_tick:
-                time.sleep(0.001)
-            next_tick = max(next_tick, time.perf_counter()) + 0.02
+            next_tick = _pace(next_tick)
             if ctl is not None and ctl.poll(
                     dec, lambda: _snapshot(256),
                     transport_save=lambda: _transport_state(
@@ -1157,27 +1218,33 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
                     ingest, adaptive=args.adaptive is not None))
             t0 = time.perf_counter()
 
-            if pump is None:
-                _drain_python_rx(rx, jb, args.red)
-                pkts, received, sizes = jb.collect()
-            else:
-                pkts, received, sizes = pump.collect()
-            occupied = int(received.sum())
+            with trace.span("serve.collect"):
+                if pump is None:
+                    _drain_python_rx(rx, jb, args.red)
+                    pkts, received, sizes = jb.collect()
+                else:
+                    pkts, received, sizes = pump.collect()
+                occupied = int(received.sum())
 
-            out = dec.tick_wire_async(pkts, received, sizes.astype(np.int32))
+            with trace.span("serve.tick"):
+                out = dec.tick_wire_async(pkts, received,
+                                          sizes.astype(np.int32))
             tick_ms.append((time.perf_counter() - t0) * 1e3)
             if out is None:
                 continue  # pipeline priming
             if tx is not None:
                 # Every slot ships its hop (PLC/CNG fills inactive gaps);
                 # int16 PCM rows reinterpret as bytes on the wire.
-                if args.echo == "reply":
-                    tx.route_from_pump(pump)
-                tx.send(np.ascontiguousarray(out), pcm_sizes, ticks)
+                with trace.span("serve.send"):
+                    if args.echo == "reply":
+                        tx.route_from_pump(pump)
+                    tx.send(np.ascontiguousarray(out), pcm_sizes, ticks)
             ticks += 1
 
             if time.perf_counter() >= next_report:
                 next_report += args.report_every
+                if args.trace:
+                    trace_stats = _trace_report()
                 snap = _snapshot(256)
                 sink.emit(snap)
                 print(f"ticks={ticks} tick_ms p50={snap['tick_ms_p50']:.1f} "
@@ -1189,6 +1256,8 @@ def main(argv=None, _on_ready=None, _stop=None, *, device=None) -> int:
         pass
     finally:
         dec.flush_async()
+        if args.trace:
+            trace_stats = _trace_report()
         snap = {**_snapshot(None), "final": True}
         sink.emit(snap)
         sink.close()

@@ -40,6 +40,22 @@ drain drain silence.  The host batch codecs (lyra_tpu_torch/packet.py)
 run through the native library when it builds, as the JAX servers' do;
 each server builds it in its constructor, not mid-tick.
 
+Tracing (utils/trace.py, off by default).  Each server's submit counter
+is its tick id.  `enc.tick` / `dec.tick` span each public tick or flush
+call (a flush carries the id of the tick it drains); inside it
+`*.stage` spans the host inputs' preparation and pinned staging
+(`_pcm_in`, `_HostIO.stage`), `dec.unpack` the decoder's host unpack and
+masks (`_unpack_wire`, `_sizes_to_nq`, `_active_mask`), `graph.replay`
+the program's launch (utils/capture.py), `*.fetch` the outputs' copies to
+the host and their event, `host.wait` every wait on an event (time the
+host waits on the card, not host work), and `*.drain` the outputs' copy
+out of pinned memory and the masking after it, under the id of the tick
+it drains.  Counters: `dec.rows_concealed` (active rows not received and
+not in comfort noise), `dec.rows_comfort_noise` (active rows drained in
+comfort noise; every such row was not received, so the two add without
+overlap) and `enc.rows_dtx` (active rows drained as DTX noise hops); the
+decoder's program counts `dec.rows_run` itself (codec/engine.py).
+
 `ServerPool` serves one fleet as waves of equal-capacity servers (the
 JAX package's wave schedule), each wave with its own graph cache.
 """
@@ -47,7 +63,7 @@ JAX package's wave schedule), each wave with its own graph cache.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,7 +75,7 @@ from lyra_tpu_torch.parallel.sharding import (
     shard_batch_tree,
     unshard_batch_tree,
 )
-from lyra_tpu_torch.utils import checkpoint, native
+from lyra_tpu_torch.utils import checkpoint, native, trace
 from lyra_tpu_torch.utils.state import state_from_numpy
 
 
@@ -67,6 +83,25 @@ from lyra_tpu_torch.utils.state import state_from_numpy
 class _Slot:
     stream_id: object
     active: bool = False
+
+
+class _SpanNames(NamedTuple):
+    """The tracer's span names of one server kind."""
+    tick: str
+    stage: str
+    fetch: str
+    drain: str
+
+
+_ENC = _SpanNames("enc.tick", "enc.stage", "enc.fetch", "enc.drain")
+_DEC = _SpanNames("dec.tick", "dec.stage", "dec.fetch", "dec.drain")
+
+
+class _Fetch(NamedTuple):
+    """A tick's outputs on their way to the host."""
+    events: List[torch.cuda.Event]  # one per card; none on the CPU
+    host: list  # pinned buffers (the card) or the outputs (the CPU)
+    tick: int  # the server's id of the tick
 
 
 def _pcm_in(audio):
@@ -92,6 +127,11 @@ class _HostIO:
         self._events: List[List[torch.cuda.Event]] = [[], []]
         self._ticks = 0
 
+    @property
+    def next_tick(self) -> int:
+        """The id the next submitted tick takes."""
+        return self._ticks
+
     def _buf(self, key, shape, dtype) -> torch.Tensor:
         key = (key, tuple(shape), dtype)
         if key not in self._bufs:
@@ -104,8 +144,10 @@ class _HostIO:
         done."""
         k = self._ticks % 2
         self._ticks += 1
-        for ev in self._events[k]:
-            ev.synchronize()
+        if self._events[k]:
+            with trace.span("host.wait"):
+                for ev in self._events[k]:
+                    ev.synchronize()
         self._events[k] = []
         return k
 
@@ -125,14 +167,15 @@ class _HostIO:
         buf.numpy()[...] = a
         return buf
 
-    def fetch(self, k: int, outs):
-        """Enqueue the outputs' copies to the host; → (events, host
-        tensors).  A sharded output's parts land in their row blocks of
-        one buffer, each shard's copies followed by an event on its own
-        card's stream."""
+    def fetch(self, k: int, outs) -> _Fetch:
+        """Enqueue the outputs of slot k's tick (the last begun) for the
+        host.  A sharded output's parts land in their row blocks of one
+        buffer, each shard's copies followed by an event on its own card's
+        stream."""
+        tick = self._ticks - 1
         if not self._cuda:
-            return [], [unshard_batch_tree(t) if isinstance(t, Sharded)
-                        else t for t in outs]
+            return _Fetch([], [unshard_batch_tree(t) if isinstance(
+                t, Sharded) else t for t in outs], tick)
         host, shards = [], {}
         for j, t in enumerate(outs):
             buf = self._buf((k, "out", j), t.shape, t.dtype)
@@ -149,15 +192,15 @@ class _HostIO:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(dev))
             evs.append(ev)
-        return evs, host
+        return _Fetch(evs, host, tick)
 
     @staticmethod
-    def result(fetched) -> List[np.ndarray]:
+    def result(fetched: _Fetch) -> List[np.ndarray]:
         """Wait for a fetch; its outputs as private numpy arrays."""
-        evs, host = fetched
-        for ev in evs:
-            ev.synchronize()
-        return [np.array(h.numpy()) for h in host]
+        with trace.span("host.wait", fetched.tick):
+            for ev in fetched.events:
+                ev.synchronize()
+        return [np.array(h.numpy()) for h in fetched.host]
 
 
 def _launch(server, key, fn, *arrays):
@@ -165,7 +208,8 @@ def _launch(server, key, fn, *arrays):
     outputs on the device, valid until the program's next replay)."""
     io = server._io
     k = io.begin()
-    ins = [io.stage(k, i, a) for i, a in enumerate(arrays)]
+    with trace.span(server._SPANS.stage):
+        ins = [io.stage(k, i, a) for i, a in enumerate(arrays)]
     *outs, server._state = server.engine._run(fn, key, server._state, *ins,
                                               graphs=server._graphs)
     return k, outs
@@ -175,7 +219,8 @@ def _submit(server, key, fn, *arrays):
     """Run one tick program over `server._state`; → the fetch of its
     outputs (see _HostIO)."""
     k, outs = _launch(server, key, fn, *arrays)
-    return server._io.fetch(k, outs)
+    with trace.span(server._SPANS.fetch):
+        return server._io.fetch(k, outs)
 
 
 def _check_engine(engine, sample_rate_hz, device) -> None:
@@ -324,6 +369,8 @@ def _assign_slots(by_id: Dict[object, int], slot_table: List[_Slot],
 class DecoderServer:
     """Fixed-capacity batched decoder with per-stream admission."""
 
+    _SPANS = _DEC
+
     def __init__(self, capacity: int, engine: Optional[DecoderEngine] = None,
                  model_path: str = config.DEFAULT_MODEL_PATH, seed: int = 0,
                  sample_rate_hz: Optional[int] = None, *, device=None):
@@ -444,6 +491,7 @@ class DecoderServer:
             engine, stages = self.engine, self._num_stages
 
             def step(state, wire, received):
+                trace.mark("dec.wire_unpack", wire)
                 full = torch.full((wire.shape[0], stages), -1,
                                   dtype=torch.int32, device=wire.device)
                 full[:, :nq] = packet.unpack_wire_device(wire, bits)
@@ -462,6 +510,7 @@ class DecoderServer:
             engine, stages = self.engine, self._num_stages
 
             def step(state, wire, received, nq_row):
+                trace.mark("dec.wire_unpack", wire)
                 idx = packet.unpack_wire_device_mixed(wire, nq_row)
                 full = torch.full((wire.shape[0], stages), -1,
                                   dtype=torch.int32, device=wire.device)
@@ -480,31 +529,63 @@ class DecoderServer:
         Returns stream_id -> hop of int16 audio at the engine's rate.
         """
         _no_inflight_tick(self, "a synchronous tick")
-        indices = np.full((self.capacity, self._num_stages), -1, np.int32)
-        received = np.zeros(self.capacity, bool)
-        for sid, pkt in packets.items():
-            i = self._by_id.get(sid)
-            if i is None:
-                # A straggler for a stream that already hung up: counted,
-                # not a reason to abort every live call's tick.
-                self.inactive_drops += 1
-                continue
-            if pkt:
-                try:
-                    idx = packet.unpack_indices(pkt)
-                    if idx.size > self._stage_cap:
-                        raise ValueError("packet exceeds engine max_bitrate")
-                except ValueError:
-                    # A malformed packet from one peer is loss for that
-                    # stream (reference: LyraDecoder::SetEncodedPacket
-                    # returns false per stream); PLC covers the hop.
-                    self.bad_packets[i] += 1
-                    continue
-                indices[i, : idx.size] = idx
-                received[i] = True
-        audio, self._last_comfort = _HostIO.result(_submit(
-            self, ("dec_packed",), self._packed_step, indices, received))
-        return {sid: audio[i] for sid, i in self._by_id.items()}
+        with trace.span(_DEC.tick, self._io.next_tick):
+            with trace.span("dec.unpack"):
+                indices = np.full((self.capacity, self._num_stages), -1,
+                                  np.int32)
+                received = np.zeros(self.capacity, bool)
+                for sid, pkt in packets.items():
+                    i = self._by_id.get(sid)
+                    if i is None:
+                        # A straggler for a stream that already hung up:
+                        # counted, not a reason to abort every live call's
+                        # tick.
+                        self.inactive_drops += 1
+                        continue
+                    if pkt:
+                        try:
+                            idx = packet.unpack_indices(pkt)
+                            if idx.size > self._stage_cap:
+                                raise ValueError(
+                                    "packet exceeds engine max_bitrate")
+                        except ValueError:
+                            # A malformed packet from one peer is loss for
+                            # that stream (reference: LyraDecoder::
+                            # SetEncodedPacket returns false per stream);
+                            # PLC covers the hop.
+                            self.bad_packets[i] += 1
+                            continue
+                        indices[i, : idx.size] = idx
+                        received[i] = True
+                lost = self._lost(received)
+            audio = self._result(_submit(
+                self, ("dec_packed",), self._packed_step, indices, received),
+                lost)
+            return {sid: audio[i] for sid, i in self._by_id.items()}
+
+    def _lost(self, received: np.ndarray) -> Optional[np.ndarray]:
+        """While tracing, the active rows a submitted tick does not
+        receive (its drain counts them); else None."""
+        return _active_mask(self) & ~received if trace.enabled() else None
+
+    def _result(self, fetched: _Fetch, lost: Optional[np.ndarray],
+                gen_prev: Optional[np.ndarray] = None) -> np.ndarray:
+        """A fetched tick's audio, and its comfort-noise flags kept; with
+        `gen_prev`, a slot that changed hands since the submit drains
+        silence and no flag.  Counts the tick's rows where `lost` is
+        given."""
+        with trace.span(_DEC.drain, fetched.tick):
+            audio, is_cn = _HostIO.result(fetched)
+            if gen_prev is not None:
+                stale = gen_prev != self._gen  # slot re-admitted since submit
+                audio[stale] = 0
+                is_cn = is_cn & ~stale
+            self._last_comfort = is_cn
+            if lost is not None:
+                cn = int((lost & is_cn).sum())
+                trace.count("dec.rows_comfort_noise", cn)
+                trace.count("dec.rows_concealed", int(lost.sum()) - cn)
+        return audio
 
     def is_comfort_noise(self, stream_id) -> bool:
         return bool(self._last_comfort[self._by_id[stream_id]])
@@ -516,37 +597,43 @@ class DecoderServer:
         treated as loss).  Wire bytes → indices on the host, grouped by
         packet size.  Returns audio [capacity, hop] int16."""
         _no_inflight_tick(self, "a synchronous tick")
-        indices, received = self._unpack_wire(packets, received, sizes)
-        audio, self._last_comfort = _HostIO.result(_submit(
-            self, ("dec_packed",), self._packed_step, indices, received))
-        return audio
+        with trace.span(_DEC.tick, self._io.next_tick):
+            indices, received, lost = self._unpack_wire(packets, received,
+                                                        sizes)
+            return self._result(_submit(
+                self, ("dec_packed",), self._packed_step, indices, received),
+                lost)
 
     def _unpack_wire(self, packets, received, sizes):
-        """Wire bytes → (indices [capacity, stages], effective received)."""
-        packets = np.ascontiguousarray(packets, np.uint8)
-        sizes = np.asarray(sizes)
-        received = (np.asarray(received, bool) & (sizes > 0)
-                    & _active_mask(self))
-        if np.any(received & (sizes > packets.shape[1])):
-            # The host's own buffer-assembly bug: refuse loudly before any
-            # counter moves.
-            raise ValueError(
-                f"sizes exceed the packets array width {packets.shape[1]}")
-        indices = np.full((self.capacity, self._num_stages), -1, np.int32)
-        for size in np.unique(sizes[received]):
-            bits = config.packet_size_to_num_quantized_bits(int(size))
-            if (bits < 0
-                    or bits // config.BITS_PER_QUANTIZER > self._stage_cap):
-                # Unknown size, or above the engine's max_bitrate cap: the
-                # whole size group is malformed → loss.
-                bad = received & (sizes == size)
-                self.bad_packets[bad] += 1
-                received = received & ~bad
-                continue
-            rows = np.flatnonzero(received & (sizes == size))
-            idx = packet.unpack_indices_batch(packets[rows, :int(size)], bits)
-            indices[rows, : idx.shape[1]] = idx
-        return indices, received
+        """Wire bytes → (indices [capacity, stages], effective received,
+        `_lost`)."""
+        with trace.span("dec.unpack"):
+            packets = np.ascontiguousarray(packets, np.uint8)
+            sizes = np.asarray(sizes)
+            received = (np.asarray(received, bool) & (sizes > 0)
+                        & _active_mask(self))
+            if np.any(received & (sizes > packets.shape[1])):
+                # The host's own buffer-assembly bug: refuse loudly before
+                # any counter moves.
+                raise ValueError(f"sizes exceed the packets array width "
+                                 f"{packets.shape[1]}")
+            indices = np.full((self.capacity, self._num_stages), -1,
+                              np.int32)
+            cap = self._stage_cap
+            for size in np.unique(sizes[received]):
+                bits = config.packet_size_to_num_quantized_bits(int(size))
+                if bits < 0 or bits // config.BITS_PER_QUANTIZER > cap:
+                    # Unknown size, or above the engine's max_bitrate cap:
+                    # the whole size group is malformed → loss.
+                    bad = received & (sizes == size)
+                    self.bad_packets[bad] += 1
+                    received = received & ~bad
+                    continue
+                rows = np.flatnonzero(received & (sizes == size))
+                idx = packet.unpack_indices_batch(packets[rows, :int(size)],
+                                                  bits)
+                indices[rows, : idx.shape[1]] = idx
+            return indices, received, self._lost(received)
 
     def tick_wire(self, packets: np.ndarray, received: np.ndarray,
                   sizes: Optional[np.ndarray] = None) -> np.ndarray:
@@ -562,27 +649,31 @@ class DecoderServer:
         over-cap size is a counted drop (bad_packets).  Bit-identical
         audio to tick_packed in both forms."""
         _no_inflight_tick(self, "a synchronous tick")
-        audio, self._last_comfort = _HostIO.result(
-            self._wire_run(packets, received, sizes))
-        return audio
+        with trace.span(_DEC.tick, self._io.next_tick):
+            return self._result(*self._wire_run(packets, received, sizes))
 
     def _wire_run(self, packets, received, sizes, submit=_submit):
-        """Uniform/mixed dispatch of the wire tick; → `submit`'s result:
+        """Uniform/mixed dispatch of the wire tick; → (`submit`'s result:
         the output fetch, or with `submit=_launch` the outputs on the
-        device (the conference bridge's decode stage)."""
-        packets = np.ascontiguousarray(packets, np.uint8)
-        if sizes is None:
-            bits = config.packet_size_to_num_quantized_bits(
-                int(packets.shape[1]))
-            if bits < 0 or bits // config.BITS_PER_QUANTIZER > self._stage_cap:
-                raise ValueError(f"packet size {packets.shape[1]} "
-                                 f"unsupported for this engine")
-            received = np.asarray(received, bool) & _active_mask(self)
-            return submit(self, *self._wire_step(bits), packets, received)
-        nq_row, received = self._sizes_to_nq(sizes, received,
-                                             packets.shape[1])
-        return submit(self, *self._wire_step_mixed(packets.shape[1]),
-                      packets, received, nq_row)
+        device (the conference bridge's decode stage); `_lost`)."""
+        with trace.span("dec.unpack"):
+            packets = np.ascontiguousarray(packets, np.uint8)
+            if sizes is None:
+                bits = config.packet_size_to_num_quantized_bits(
+                    int(packets.shape[1]))
+                cap = self._stage_cap
+                if bits < 0 or bits // config.BITS_PER_QUANTIZER > cap:
+                    raise ValueError(f"packet size {packets.shape[1]} "
+                                     f"unsupported for this engine")
+                received = np.asarray(received, bool) & _active_mask(self)
+                program, args = self._wire_step(bits), (packets, received)
+            else:
+                nq_row, received = self._sizes_to_nq(sizes, received,
+                                                     packets.shape[1])
+                program = self._wire_step_mixed(packets.shape[1])
+                args = (packets, received, nq_row)
+            lost = self._lost(received)
+        return submit(self, *program, *args), lost
 
     def _sizes_to_nq(self, sizes: np.ndarray, received: np.ndarray,
                      width: int):
@@ -619,14 +710,18 @@ class DecoderServer:
         if self._pending is not None:
             raise RuntimeError(
                 "tick_packed_async pipeline in flight; flush_async() first")
-        fetched = self._wire_run(packets, received, sizes)
-        pending, self._wire_pending = self._wire_pending, (
-            fetched, self._gen.copy())
-        return None if pending is None else self._drain(pending)
+        with trace.span(_DEC.tick, self._io.next_tick):
+            fetched, lost = self._wire_run(packets, received, sizes)
+            pending, self._wire_pending = self._wire_pending, (
+                fetched, self._gen.copy(), lost)
+            return None if pending is None else self._drain(pending)
 
     def flush_wire_async(self) -> Optional[np.ndarray]:
         pending, self._wire_pending = self._wire_pending, None
-        return None if pending is None else self._drain(pending)
+        if pending is None:
+            return None
+        with trace.span(_DEC.tick, pending[0].tick):
+            return self._drain(pending)
 
     def tick_packed_async(self, packets: np.ndarray, received: np.ndarray,
                           sizes: np.ndarray) -> Optional[np.ndarray]:
@@ -641,19 +736,18 @@ class DecoderServer:
         if self._wire_pending is not None:
             raise RuntimeError(
                 "tick_wire_async pipeline in flight; flush_wire_async() first")
-        indices, received = self._unpack_wire(packets, received, sizes)
-        fetched = _submit(self, ("dec_packed",), self._packed_step, indices,
-                          received)
-        pending, self._pending = self._pending, (fetched, self._gen.copy())
-        return None if pending is None else self._drain(pending)
+        with trace.span(_DEC.tick, self._io.next_tick):
+            indices, received, lost = self._unpack_wire(packets, received,
+                                                        sizes)
+            fetched = _submit(self, ("dec_packed",), self._packed_step,
+                              indices, received)
+            pending, self._pending = self._pending, (
+                fetched, self._gen.copy(), lost)
+            return None if pending is None else self._drain(pending)
 
     def _drain(self, pending) -> np.ndarray:
-        fetched, gen_prev = pending
-        audio, is_cn = _HostIO.result(fetched)
-        stale = gen_prev != self._gen  # slot re-admitted since submit
-        audio[stale] = 0
-        self._last_comfort = is_cn & ~stale
-        return audio
+        fetched, gen_prev, lost = pending
+        return self._result(fetched, lost, gen_prev)
 
     def flush_async(self) -> Optional[np.ndarray]:
         """Drain the last in-flight tick of whichever async pipeline is
@@ -661,11 +755,14 @@ class DecoderServer:
         pending, self._pending = self._pending, None
         if pending is None:
             return self.flush_wire_async()
-        return self._drain(pending)
+        with trace.span(_DEC.tick, pending[0].tick):
+            return self._drain(pending)
 
 
 class EncoderServer:
     """Fixed-capacity batched encoder; emits wire packets per stream."""
+
+    _SPANS = _ENC
 
     def __init__(self, capacity: int, engine: Optional[EncoderEngine] = None,
                  model_path: str = config.DEFAULT_MODEL_PATH,
@@ -789,8 +886,9 @@ class EncoderServer:
     def _step_submit(self, audio):
         """The engine step over the slot table; → the fetch of (indices,
         is_noise)."""
-        return _submit(self, "step", self.engine._step_impl, _pcm_in(audio),
-                       self._nq)
+        with trace.span(_ENC.stage):
+            pcm = _pcm_in(audio)
+        return _submit(self, "step", self.engine._step_impl, pcm, self._nq)
 
     def _wire_step(self, max_bits: int):
         """Step + device wire pack at per-row stage counts into rows of
@@ -802,6 +900,7 @@ class EncoderServer:
             def step(state, frames, nq_row):
                 indices, is_noise, state = engine._step_impl(
                     state, frames, nq_row)
+                trace.mark("enc.wire_pack", indices)
                 return (packet.pack_wire_device_mixed(indices, nq_row,
                                                       max_bits),
                         is_noise, state)
@@ -816,9 +915,21 @@ class EncoderServer:
         sizes is 0 for DTX noise hops; mixed per-stream bitrates pack in
         one host batch call per size group."""
         _no_inflight_tick(self, "a synchronous tick")
-        indices, is_noise = _HostIO.result(self._step_submit(audio))
-        return self._pack_wire(indices, is_noise, self._bits,
-                               _active_mask(self))
+        with trace.span(_ENC.tick, self._io.next_tick):
+            fetched = self._step_submit(audio)
+            with trace.span(_ENC.drain, fetched.tick):
+                active = _active_mask(self)
+                indices, is_noise = self._result(fetched, active)
+                return self._pack_wire(indices, is_noise, self._bits, active)
+
+    @staticmethod
+    def _result(fetched: _Fetch, active: np.ndarray):
+        """A fetched tick's (indices or wire, is_noise); counts its DTX
+        rows while tracing."""
+        out, is_noise = _HostIO.result(fetched)
+        if trace.enabled():
+            trace.count("enc.rows_dtx", int((is_noise & active).sum()))
+        return out, is_noise
 
     def _pack_wire(self, indices: np.ndarray, is_noise: np.ndarray,
                    bits_arr: np.ndarray, active: np.ndarray):
@@ -851,29 +962,35 @@ class EncoderServer:
         noise hops) are zero.  For DecoderServer.tick_wire pass these
         sizes and `received & (sizes > 0)`."""
         _no_inflight_tick(self, "a synchronous tick")
-        return self._drain_wire(self._wire_submit(audio))
+        with trace.span(_ENC.tick, self._io.next_tick):
+            return self._drain_wire(self._wire_submit(audio))
 
     def _wire_submit(self, audio: np.ndarray):
         """Submit the step + device pack; → the pending tuple.  One
         program per fleet-widest bitrate (uniform and mixed fleets alike);
         the width follows the active rows (default when empty)."""
-        rows = list(self._by_id.values())
-        max_bits = int(self._bits[rows].max()) if rows else self._default_bits
-        fetched = _submit(self, *self._wire_step(max_bits), _pcm_in(audio),
-                          self._nq)
-        return (fetched, _active_mask(self), self._bits.copy(),
-                self._gen.copy())
+        with trace.span(_ENC.stage):
+            rows = list(self._by_id.values())
+            max_bits = (int(self._bits[rows].max()) if rows
+                        else self._default_bits)
+            pcm = _pcm_in(audio)
+            config_now = (_active_mask(self), self._bits.copy(),
+                          self._gen.copy())
+        fetched = _submit(self, *self._wire_step(max_bits), pcm, self._nq)
+        return (fetched, *config_now)
 
     def _drain_wire(self, pending):
         fetched, active, bits, gen_prev = pending
-        wire, is_noise = _HostIO.result(fetched)
-        # As tick_packed: non-emitting rows carry zeros, and a slot
-        # re-admitted since submit emits size 0; bits is the submit-time
-        # snapshot.
-        emit = (active & ~is_noise) & (gen_prev == self._gen)
-        wire[~emit] = 0
-        sizes = np.where(emit, config.packet_size(bits), 0).astype(np.int32)
-        return wire, sizes
+        with trace.span(_ENC.drain, fetched.tick):
+            wire, is_noise = self._result(fetched, active)
+            # As tick_packed: non-emitting rows carry zeros, and a slot
+            # re-admitted since submit emits size 0; bits is the
+            # submit-time snapshot.
+            emit = (active & ~is_noise) & (gen_prev == self._gen)
+            wire[~emit] = 0
+            sizes = np.where(emit, config.packet_size(bits),
+                             0).astype(np.int32)
+            return wire, sizes
 
     def tick_wire_async(self, audio: np.ndarray):
         """Pipelined tick_wire: submit this tick's audio, return the
@@ -881,13 +998,17 @@ class EncoderServer:
         if self._pending is not None:
             raise RuntimeError(
                 "tick_packed_async pipeline in flight; flush_async() first")
-        pending, self._wire_pending = self._wire_pending, \
-            self._wire_submit(audio)
-        return None if pending is None else self._drain_wire(pending)
+        with trace.span(_ENC.tick, self._io.next_tick):
+            pending, self._wire_pending = self._wire_pending, \
+                self._wire_submit(audio)
+            return None if pending is None else self._drain_wire(pending)
 
     def flush_wire_async(self):
         pending, self._wire_pending = self._wire_pending, None
-        return None if pending is None else self._drain_wire(pending)
+        if pending is None:
+            return None
+        with trace.span(_ENC.tick, pending[0].tick):
+            return self._drain_wire(pending)
 
     def tick_packed_async(self, audio: np.ndarray):
         """Pipelined encode tick: submit this tick's audio, return the
@@ -896,17 +1017,20 @@ class EncoderServer:
         if self._wire_pending is not None:
             raise RuntimeError(
                 "tick_wire_async pipeline in flight; flush_wire_async() first")
-        fetched = self._step_submit(audio)
-        # Snapshot the wire config with the indices it belongs to.
-        pending, self._pending = self._pending, (
-            fetched, self._bits.copy(), _active_mask(self), self._gen.copy())
-        return None if pending is None else self._drain(pending)
+        with trace.span(_ENC.tick, self._io.next_tick):
+            fetched = self._step_submit(audio)
+            # Snapshot the wire config with the indices it belongs to.
+            pending, self._pending = self._pending, (
+                fetched, self._bits.copy(), _active_mask(self),
+                self._gen.copy())
+            return None if pending is None else self._drain(pending)
 
     def _drain(self, pending):
         fetched, bits, active, gen_prev = pending
-        indices, is_noise = _HostIO.result(fetched)
-        return self._pack_wire(indices, is_noise, bits,
-                               active & (gen_prev == self._gen))
+        with trace.span(_ENC.drain, fetched.tick):
+            indices, is_noise = self._result(fetched, active)
+            return self._pack_wire(indices, is_noise, bits,
+                                   active & (gen_prev == self._gen))
 
     def flush_async(self):
         """Drain the last in-flight tick of whichever async pipeline is
@@ -914,48 +1038,55 @@ class EncoderServer:
         pending, self._pending = self._pending, None
         if pending is None:
             return self.flush_wire_async()
-        return self._drain(pending)
+        with trace.span(_ENC.tick, pending[0].tick):
+            return self._drain(pending)
 
     def tick(self, audio: Dict[object, np.ndarray]) -> Dict[object, bytes]:
         """One 20 ms step: stream_id -> hop of int16 samples in,
         stream_id -> wire packet bytes out (b"" for DTX noise hops)."""
         _no_inflight_tick(self, "a synchronous tick")
-        missing = self._by_id.keys() - audio.keys()
-        if missing:
-            # Encoding zeros for an omitted active stream would emit a real
-            # packet of silence with no error: the host must account for
-            # every live call.
-            raise ValueError(
-                f"no audio for active streams {sorted(missing, key=repr)!r}")
-        # All-int16 hops assemble into an int16 frame buffer; any float hop
-        # keeps the f32 contract.
-        hops = {sid: np.asarray(hop) for sid, hop in audio.items()}
-        dt = (np.int16 if all(h.dtype == np.int16 for h in hops.values())
-              else np.float32)
-        frames = np.zeros((self.capacity, self.engine.hop_samples), dt)
-        for sid, hop in hops.items():
-            i = self._by_id.get(sid)
-            if i is None:
-                raise KeyError(f"unknown stream {sid!r}")
-            frames[i] = hop.astype(dt)
-        indices, is_noise = _HostIO.result(self._step_submit(frames))
-
-        out: Dict[object, bytes] = {}
-        # Group by bitrate so each group packs in one batch call.
-        for bits in np.unique(self._bits[list(self._by_id.values())]
-                              if self._by_id else []):
-            ids = [sid for sid, i in self._by_id.items()
-                   if self._bits[i] == bits and not is_noise[i]]
-            if not ids:
-                continue
-            rows = np.stack([indices[self._by_id[sid]] for sid in ids])
-            pkts = packet.pack_indices_batch(rows, int(bits))
-            for sid, row in zip(ids, pkts):
-                out[sid] = row.tobytes()
-        for sid, i in self._by_id.items():
-            if is_noise[i]:
-                out[sid] = b""
-        return out
+        with trace.span(_ENC.tick, self._io.next_tick):
+            with trace.span(_ENC.stage):
+                missing = self._by_id.keys() - audio.keys()
+                if missing:
+                    # Encoding zeros for an omitted active stream would emit
+                    # a real packet of silence with no error: the host must
+                    # account for every live call.
+                    raise ValueError(f"no audio for active streams "
+                                     f"{sorted(missing, key=repr)!r}")
+                # All-int16 hops assemble into an int16 frame buffer; any
+                # float hop keeps the f32 contract.
+                hops = {sid: np.asarray(hop) for sid, hop in audio.items()}
+                dt = (np.int16 if all(h.dtype == np.int16
+                                      for h in hops.values())
+                      else np.float32)
+                frames = np.zeros((self.capacity, self.engine.hop_samples),
+                                  dt)
+                for sid, hop in hops.items():
+                    i = self._by_id.get(sid)
+                    if i is None:
+                        raise KeyError(f"unknown stream {sid!r}")
+                    frames[i] = hop.astype(dt)
+            fetched = self._step_submit(frames)
+            with trace.span(_ENC.drain, fetched.tick):
+                indices, is_noise = self._result(fetched, _active_mask(self))
+                out: Dict[object, bytes] = {}
+                # Group by bitrate so each group packs in one batch call.
+                for bits in np.unique(self._bits[list(self._by_id.values())]
+                                      if self._by_id else []):
+                    ids = [sid for sid, i in self._by_id.items()
+                           if self._bits[i] == bits and not is_noise[i]]
+                    if not ids:
+                        continue
+                    rows = np.stack([indices[self._by_id[sid]]
+                                     for sid in ids])
+                    pkts = packet.pack_indices_batch(rows, int(bits))
+                    for sid, row in zip(ids, pkts):
+                        out[sid] = row.tobytes()
+                for sid, i in self._by_id.items():
+                    if is_noise[i]:
+                        out[sid] = b""
+                return out
 
 
 def _concat_wave_outputs(outs):

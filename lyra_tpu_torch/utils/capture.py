@@ -23,6 +23,15 @@ instead:
     the same key overwrites them, so a caller copies out what it keeps
     (stream order suffices: a copy enqueued before the next replay reads
     this replay's values).
+  * With the tracer on (utils/trace.py), the full key also holds
+    `trace.enabled()`: graphs captured while tracing is off hold no
+    device marker, and turning tracing on captures graphs of their own
+    and never touches those.  Each call is a `graph.replay` span, a
+    capture a `graph.capture` span inside it (counted as
+    `graph.captures`), and a captured graph marks `graph.state_copy`
+    before its output and state copies and `graph.end` after them.  What
+    `fn` counts while it is captured is kept with the graph and counted
+    again at each replay; what the warm-up counts is dropped.
   * State lives in two static trees per state signature (ping-pong): the
     graph captured from tree A writes tree B, and the one from tree B
     writes tree A.  If `state` is not one of the two trees (leaf for
@@ -51,6 +60,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from lyra_tpu_torch.utils import trace
 
 Tree = Dict[str, Any]
 
@@ -103,7 +114,8 @@ def replay(graphs: "GraphCache | None", device, fn: Callable, key,
     device."""
     if graphs is not None:
         return graphs.run(fn, key, state, *inputs)
-    return fn(state, *(as_input(x).to(device) for x in inputs))
+    with trace.span("graph.replay"):
+        return fn(state, *(as_input(x).to(device) for x in inputs))
 
 
 class _Graphs:
@@ -114,6 +126,7 @@ class _Graphs:
                     for x in inputs]
         self.outs: Optional[List[torch.Tensor]] = None
         self.graphs: List[Optional[torch.cuda.CUDAGraph]] = [None, None]
+        self.counts: List[Dict[str, int]] = [{}, {}]  # trace.count a replay
 
 
 class GraphCache:
@@ -145,7 +158,8 @@ class GraphCache:
 
     # -- capture and replay -----------------------------------------------------
     def _entry(self, key, sig, inputs) -> _Graphs:
-        full = (key, sig, tuple((tuple(x.shape), x.dtype) for x in inputs))
+        full = (key, sig, tuple((tuple(x.shape), x.dtype) for x in inputs),
+                trace.enabled())
         ent = self._graphs.get(full)
         if ent is None:
             ent = self._graphs[full] = _Graphs(inputs, self.device)
@@ -153,33 +167,40 @@ class GraphCache:
 
     def run(self, fn: Callable, key, state: Tree, *inputs) -> tuple:
         """`fn(state, *inputs)` as one replay: (*outputs, new_state)."""
-        inputs = [as_input(x) for x in inputs]
         # The cache's card is the current device throughout: a capture
         # records on the current device's streams, and the kernels launch
         # there (a process may hold caches of several cards).
-        with torch.cuda.device(self.device):
+        with trace.span("graph.replay"), torch.cuda.device(self.device):
+            inputs = [as_input(x) for x in inputs]
             pair, i = self._pair(state)
             ent = self._entry(key, _signature(state), inputs)
             for dst, x in zip(ent.ins, inputs):
                 dst.copy_(x, non_blocking=True)
             if ent.graphs[i] is None:
-                ent.graphs[i] = self._capture(fn, ent, pair[i], pair[1 - i])
+                with trace.span("graph.capture"):
+                    trace.count("graph.captures")
+                    ent.graphs[i], ent.counts[i] = self._capture(
+                        fn, ent, pair[i], pair[1 - i])
             ent.graphs[i].replay()
+            if ent.counts[i]:
+                trace.add(ent.counts[i])
         return (*ent.outs, pair[1 - i])
 
     def _capture(self, fn, ent: _Graphs, src: Tree, dst: Tree):
         if ent.outs is None:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), trace.apart():
                 warm = fn(src, *ent.ins)
             torch.cuda.current_stream(self.device).wait_stream(side)
             ent.outs = [torch.empty_like(t) for t in warm[:-1]]
             del warm
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool), trace.apart() as counts:
             res = fn(src, *ent.ins)
+            trace.mark("graph.state_copy", self.device)
             for out, t in zip(ent.outs, res[:-1]):
                 out.copy_(t)
             _copy_tree(dst, res[-1])
-        return graph
+            trace.mark("graph.end", self.device)
+        return graph, counts

@@ -1054,3 +1054,98 @@ def test_quant_graphs_ignore_tf32(cuda, name, shape, kw):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert all(bool(torch.isfinite(y).all()) for y in outs[0])
+
+
+# -- the tracer's device markers (utils/trace.py, ops/csrc/trace_mark.cu) ----
+
+# One synchronous tick pair's markers at 48 kHz (no DTX), in stream order.
+TRACED_TICK = (
+    "enc.in", "enc.resample", "ss.prologue", "ss.core", "ss.epilogue",
+    "enc.ss_select", "enc.rvq", "enc.wire_pack", "graph.state_copy",
+    "graph.end",
+    "dec.wire_unpack", "dec.rvq_decode", "dec.plc", "gan.prologue",
+    "gan.core", "gan.epilogue", "dec.gan_select", "dec.cng",
+    "dec.crossfade", "dec.noise", "dec.resample", "dec.out",
+    "graph.state_copy", "graph.end")
+
+
+def _marked_kernels(run):
+    """→ (the segment of each marker `run()` launched, in stream order;
+    the count of device kernels recorded), from a profiler window."""
+    import re
+
+    from lyra_tpu_torch.utils import trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = sorted((e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [trace.SEGMENTS[int(m.group(1))] for _, n in dev
+             for m in [re.search(r"lyra_trace_mark(?:<|ILi)(\d+)", n)] if m]
+    return marks, len(dev)
+
+
+def test_trace_markers_live_only_in_traced_graphs(cuda):
+    """A server pair at 48 kHz in bf16: graphs captured with tracing off
+    hold no marker, and stay in use, unchanged, after tracing was on;
+    graphs captured with it on hold every segment's marker in order, and
+    their replays count the decoder's rows; the outputs are bitwise those
+    of a pair never traced."""
+    from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
+    from lyra_tpu_torch.utils import trace
+
+    def pair():
+        e = EncoderServer(8, engine=EncoderEngine(
+            48000, SMALL, mode="bf16", device=cuda), bitrate=6000)
+        d = DecoderServer(8, engine=DecoderEngine(
+            48000, SMALL, mode="bf16", emit_dtype="int16", device=cuda))
+        for srv in (e, d):
+            srv.add_streams(range(8))
+        return e, d
+
+    audio, received = _tick_inputs(48000, 12, 8)
+    pcm = audio.astype(np.int16)
+
+    def tick(enc, dec, t, outs):
+        wire, sizes = enc.tick_wire(pcm[t])
+        outs.append((wire, sizes, dec.tick_wire(
+            wire, received[t] & (sizes > 0), sizes)))
+
+    ref_enc, ref_dec = pair()
+    ref = []
+    for t in range(12):
+        tick(ref_enc, ref_dec, t, ref)
+    enc, dec = pair()
+    outs, found = [], {}
+
+    def graphs():  # full keys captured, both servers
+        return len(enc._graphs._graphs) + len(dec._graphs._graphs)
+
+    try:
+        for phase, (traced, ticks) in enumerate(
+                [(False, range(0, 4)), (True, range(4, 8)),
+                 (False, range(8, 12))]):
+            (trace.enable if traced else trace.disable)()
+            start = graphs()
+            for t in ticks[:2]:  # the phase's two trees' captures
+                tick(enc, dec, t, outs)
+            warm = graphs()
+            found[phase] = _marked_kernels(
+                lambda: [tick(enc, dec, t, outs) for t in ticks[2:]])
+            assert graphs() == warm and (warm == start) == (phase == 2)
+        counts = trace.drain()[1]
+    finally:
+        trace.disable()
+        trace.drain()
+    for phase in (0, 2):
+        marks, kernels = found[phase]
+        assert marks == [] and kernels > 0
+    assert found[1][0] == list(TRACED_TICK) * 2
+    # Each traced decoder replay counts its rows, a capture's warm-up none.
+    assert counts["dec.rows_run"] == 8 * 4
+    for got, want in zip(outs, ref):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)

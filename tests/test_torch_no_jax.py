@@ -65,8 +65,8 @@ _CHILD = textwrap.dedent("""
         "examples.udp_call", "examples.conference_call",
         "examples.rate_adapt_call", "examples.multihost_migrate",
         "parallel", "parallel.sharding", "parallel.dryrun",
-        "tools.probe_int8_rounding", "tools.probe_xnnpack_divergence")} <= \
-        set(modules)
+        "tools.probe_int8_rounding", "tools.probe_xnnpack_divergence",
+        "utils.trace")} <= set(modules)
     from lyra_tpu_torch import packet
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.dsp.resampler import Resampler, StreamingResampler

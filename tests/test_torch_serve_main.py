@@ -23,7 +23,8 @@ thread on the small synthetic fixture at capacity 4, `device="cpu"`:
     process of its own, so each tick finds a fresh hop for every slot
     (checked: pcm_gaps 0) and its packets must equal an offline replay
     through an EncoderServer;
-  * the stats records carry the JAX keys; the argument refusals hold.
+  * the stats records carry the JAX keys (and, with --trace, a "trace"
+    dict of span percentiles and counters); the argument refusals hold.
 """
 
 import os
@@ -46,7 +47,7 @@ from lyra_tpu_torch.tools import control_auth, serve_main, udp_egress, udp_inges
 from lyra_tpu_torch.tools.conference import ConferenceBridge
 from lyra_tpu_torch.tools.jitter_buffer import JitterBuffer
 from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
-from lyra_tpu_torch.utils import native
+from lyra_tpu_torch.utils import native, trace
 
 SMALL = os.path.join(os.path.dirname(__file__), "golden", "synthetic_lyra",
                      "small")
@@ -510,6 +511,32 @@ def test_serve_main_decode_matches_offline_replay(ingest, red):
     _check_decode_replay(got, rec, script, want, delay, prev, red)
     if red:
         assert rec["red_heals"] > 0
+
+
+def test_serve_main_trace_reports_spans_and_counters():
+    """--trace: each record gains a "trace" dict (per span its count and
+    the p50 / p95 of its self ms over the interval; the counters), every
+    other key and the PCM as without it, and the tracer is off again once
+    the run returns."""
+    delay = 3
+    script = _script(5, CAP, delay + 6)
+    want = delay + 6 + 3
+    got, rec = _serve(["--ingest", "native", "--playout_delay", str(delay),
+                       "--trace"], _preload(script, None), want)
+    _check_stats(rec, "decode", "trace")
+    spans = rec["trace"]["spans"]
+    assert {"serve.collect", "serve.tick", "serve.send", "serve.pace",
+            "dec.tick", "dec.unpack", "dec.stage", "graph.replay",
+            "dec.fetch", "dec.drain", "host.wait"} <= set(spans)
+    for v in spans.values():
+        assert v["n"] > 0 and 0 <= v["p50_ms"] <= v["p95_ms"]
+    assert spans["serve.tick"]["n"] >= want
+    counts = rec["trace"]["counts"]
+    assert counts["dec.rows_run"] == CAP * spans["dec.fetch"]["n"]
+    assert counts["dec.rows_concealed"] + counts.get(
+        "dec.rows_comfort_noise", 0) > 0
+    assert not trace.enabled()
+    _check_decode_replay(got, rec, script, want, delay)
 
 
 def _check_decode_replay(got, rec, script, want, delay, prev=None, red=0):
