@@ -14,8 +14,8 @@ holds them, otherwise the synthetic full-width fixture
 
 Phases, one line each; any failed check raises and exits nonzero:
   1. build    the CUDA kernels from lyra_tpu_torch/ops/csrc (conv_stack.cu,
-              rvq_encode.cu, core_ops.cu) with nvcc, one process per
-              source, started together;
+              rvq_encode.cu, core_ops.cu, out_edge.cu) with nvcc, one
+              process per source, started together;
   2. K1       the fused conv stack vs the plain executor (SoundStream and
               LyraGAN, B=64, 20 frames, state carried, TF32 off; bar
               1e-5 × max|plain|); bitwise equal to the unfused kernel path
@@ -35,7 +35,10 @@ Phases, one line each; any failed check raises and exits nonzero:
               new state rows), bound and shares of 67 TFLOP/s FP32 and
               3.35 TB/s; each depthwise launch's plan is printed, checked
               against conv_stack.depthwise_plan, and its two launches must
-              give the same bits;
+              give the same bits; LyraGAN's output edge (ops/out_edge.py,
+              one launch a hop) vs its plain version (the executor's ops
+              on cuDNN) and cuDNN's deterministic edge at B=4096 and
+              1024, timed the same way, and one launch cold;
   3. K1-bf16  the same in bf16 mode: the fused stack vs the plain bf16
               executor and vs the plain f32 one (bar 3e-2 × max|plain|),
               the profiled hop's core span, then every bf16 fused launch
@@ -403,7 +406,7 @@ def phase_build():
     from lyra_tpu_torch.ops import cuda_build
 
     t0 = time.time()
-    sources = ("conv_stack.cu", "rvq_encode.cu", "core_ops.cu")
+    sources = ("conv_stack.cu", "rvq_encode.cu", "core_ops.cu", "out_edge.cu")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         libs = list(pool.map(cuda_build.build, sources))
     ptxas = []
@@ -445,6 +448,9 @@ def phase_k1(path, batch, dev, stats, gpu):
         # Every fused launch of one hop at the main path's batch, vs plain.
         calls += _fused_calls("K1", fused, batch, dev, torch.float32, REL_TOL,
                               stats, plans)
+        if name == "lyragan":
+            _edge_timing("K1", fused, batch, dev, torch.float32, 1e-6, stats,
+                         gpu, PEAK_FP32_FLOPS, "FP32")
     print(f"K1 vs plain: ok, max rel err soundstream "
           f"{worst['soundstream_encoder']:.3e}, lyragan {worst['lyragan']:.3e} "
           f"(B=64, 20 frames, bar {REL_TOL}); {'; '.join(lines)}; per-hop "
@@ -496,6 +502,9 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
         # Every bf16 fused launch of one hop at the main path's batch.
         calls += _fused_calls("K1-bf16", fused, batch, dev, torch.bfloat16,
                               BF16_CALL_TOL, stats, plans)
+        if name == "lyragan":
+            _edge_timing("K1-bf16", fused, batch, dev, torch.bfloat16,
+                         BF16_CALL_TOL, stats, gpu, PEAK_BF16_FLOPS, "bf16")
     print(f"K1-bf16 vs plain: ok, max rel err {'; '.join(lines)} (B=64, 20 "
           f"frames); per-hop bf16 fused launches at B={batch} within "
           f"{BF16_CALL_TOL} x max|ref|, new state rows bitwise: "
@@ -505,6 +514,67 @@ def phase_k1_bf16(path, batch, dev, stats, gpu):
     _print_depthwise_plans("K1-bf16", batch, plans)
     _time_rounds("K1-bf16", calls, conv_stack.KERNELS_BF16, batch, stats, gpu,
                  PEAK_BF16_FLOPS, "bf16")
+
+
+def _edge_timing(phase, fused, batch, dev, dtype, bar, stats, gpu, peak_flops,
+                 peak_name):
+    """LyraGAN's output edge (ops/out_edge.py, one launch a hop) on random
+    operands at B=4096 and at the main path's batch: the kernel vs its
+    plain version (the executor's ops, cuDNN's choice of algorithm; PCM
+    within bar × max|plain|, the new state within bar × max|state|) and vs
+    the library yardstick, the same ops on cuDNN's deterministic algorithms
+    as FusedStack ran them before the kernel (FusedStack._edges), timed
+    as _time_rounds does, then one launch after an L2 flush (cold).  The
+    main path's batch comes last, so its numbers stay in `stats`."""
+    import torch
+
+    edge = fused.edge
+    check(edge is not None, f"{phase}: LyraGAN's epilogue is not one launch")
+    kernel = edge.kernel
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t_in, c = fused.sg.tensors[edge.x].shape[1], edge.w.shape[1]
+    rows = fused._state_shapes[edge.state][1]
+    st = stats[kernel.name]
+    for b in (4096, batch):
+        x = torch.randn(b, t_in, c, device=dev, generator=gen).to(dtype)
+        state = torch.randn(b, rows, device=dev, generator=gen).to(dtype)
+        got, ref = edge(x, state), edge.plain(x, state)
+
+        def library(x=x, state=state):
+            with fused._edges():
+                return edge.plain(x, state)
+
+        lib = library()
+        for name, want in (("plain", ref), ("library", lib)):
+            for i in (0, 1):
+                tol = bar * want[i].float().abs().max().item()
+                err = (got[i].float() - want[i].float()).abs().max().item()
+                check(err <= tol, f"{phase} {kernel.name} B={b} vs {name}: "
+                      f"abs err {err} > {tol}")
+                if name == "plain":
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["calls"] = 1
+        check(torch.equal(edge(x, state)[0], got[0]),
+              f"{phase} {kernel.name}: two launches differ")
+        e = x.element_size()
+        flop = 2 * b * t_in * edge.w.shape[0] * c
+        nbytes = ((x.numel() + edge.w.numel() + 2 * state.numel()) * e
+                  + got[0].numel() * 4)
+        call = partial(edge, x, state)
+        _time_rounds(f"{phase} edge", [(kernel.name, call,
+                                        partial(edge.plain, x, state),
+                                        library, (flop, nbytes))],
+                     (kernel,), b, stats, gpu, peak_flops, peak_name)
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        cold = single_launch_ms(call, partial(flush.fill_, 1))
+        del flush
+        st["cold_ms"] = cold
+        print(f"{phase} edge single launch at B={b} after writing "
+              f"{FLUSH_BYTES >> 20} MB (cold), median of 20: {cold:.4f} ms; "
+              f"graph {st['graph_ms']:.4f}, eager {st['ms']:.4f}, plain "
+              f"graph/eager {st['plain_graph_ms']:.4f}/{st['plain_ms']:.4f}, "
+              f"cuDNN edge graph/eager {st['library_graph_ms']:.4f}/"
+              f"{st['library_ms']:.4f} ms [{gpu}]")
 
 
 def _bitwise_unfused(fused, shape, scale, dev):
@@ -1167,14 +1237,14 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
     returns (launches, launches per tick, summary)."""
     import torch
 
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     audio, received = _inputs(batch, ticks, dev, enc.hop_samples)
     lost = 1.0 - received.float().mean().item()
     es, ds = enc.init_state(batch), dec.init_state(batch)
     num_bits = 120
     outs, cn_count = [], 0
-    every = conv_stack.KERNELS + rvq_kernel.KERNELS
+    every = conv_stack.KERNELS + rvq_kernel.KERNELS + out_edge.KERNELS
     check(enc.graphs is not None and dec.graphs is not None,
           "main path: the engines have no CUDA graphs")
 
@@ -1272,12 +1342,13 @@ def _drive(enc, dec, kernels, batch, ticks, dev, profile_file):
 
 def phase_main(path, batch, ticks, dev, profile_out):
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     enc = EncoderEngine(16000, path, device=dev)
     dec = DecoderEngine(16000, path, device=dev)
     launches, per_tick, summary, tick = _drive(
-        enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS, batch, ticks,
+        enc, dec, conv_stack.KERNELS_F32 + rvq_kernel.KERNELS
+        + (out_edge.OUT_EDGE,), batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile.txt"))
     unfused = _kernels_per_replayed_tick(*_unfused(
@@ -1346,13 +1417,14 @@ def phase_main_bf16(path, batch, ticks, dev, profile_out):
     kernel engines' pre-tick state (and the plain f32 engines from the same
     state widened), so a discrete decision cannot carry a difference."""
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     rate = RATE_BF16
     enc = EncoderEngine(rate, path, mode="bf16", device=dev)
     dec = DecoderEngine(rate, path, mode="bf16", device=dev)
     launches, per_tick, summary, tick = _drive(
-        enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS, batch, ticks,
+        enc, dec, conv_stack.KERNELS_BF16 + rvq_kernel.KERNELS
+        + (out_edge.OUT_EDGE_BF16,), batch, ticks,
         dev, profile_out and os.path.join(profile_out,
                                           "chip_smoke_profile_bf16.txt"))
     unfused = _kernels_per_replayed_tick(*_unfused(
@@ -2815,13 +2887,15 @@ def _islands_engines(path, batch, ticks, dev, plain_ticks):
     the same indices; bf16: phase 7's bars from identical inputs).  →
     (launches, per-tick launches, summary)."""
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     launches, per_tick, lines = {}, {}, []
     for mode, rate, kernels in (
-            ("float", 16000, conv_stack.KERNELS_F32 + conv_stack.CORE_F32),
+            ("float", 16000, conv_stack.KERNELS_F32 + conv_stack.CORE_F32
+             + (out_edge.OUT_EDGE,)),
             ("bf16", RATE_BF16,
-             conv_stack.KERNELS_BF16 + conv_stack.CORE_BF16)):
+             conv_stack.KERNELS_BF16 + conv_stack.CORE_BF16
+             + (out_edge.OUT_EDGE_BF16,))):
         enc = EncoderEngine(rate, path, mode=mode, device=dev)
         dec = DecoderEngine(rate, path, mode=mode, device=dev)
         counts, ticks_, summary, tick = _drive(
@@ -4050,7 +4124,7 @@ def _quant_timing(path, dev, gpu):
     import torch
 
     from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     launches, per_tick, runs, lines = {}, {}, {}, []
     for i, (name, kw) in enumerate(QUANT_CONFIGS):
@@ -4061,7 +4135,7 @@ def _quant_timing(path, dev, gpu):
         dec = DecoderEngine(16000, path, device=dev, **kw)
         if kw["backend"] == "kernel":
             kernels = (conv_stack.KERNELS_F32 + conv_stack.CORE_F32
-                       + rvq_kernel.KERNELS)
+                       + rvq_kernel.KERNELS + (out_edge.OUT_EDGE,))
         else:
             kernels = list(rvq_kernel.KERNELS) if i < 5 else []
         counts, ticks, summary, tick = _drive(enc, dec, kernels, BATCH,
@@ -4155,7 +4229,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from lyra_tpu_torch.models.rvq import ResidualVectorQuantizer
-    from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+    from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4167,7 +4241,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)} [{gpu}]")
 
     phase_build()
-    kernels = conv_stack.KERNELS + rvq_kernel.KERNELS
+    kernels = conv_stack.KERNELS + rvq_kernel.KERNELS + out_edge.KERNELS
     stats = {k.name: {"max_abs_err": 0.0, "calls": 0, "cold_ms": None}
              for k in kernels}
     phase_k1(path, BATCH, dev, stats, gpu)

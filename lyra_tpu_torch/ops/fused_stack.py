@@ -1,4 +1,4 @@
-"""Partitioned conv-stack executor: torch audio edges around a kernel core.
+"""Partitioned conv-stack executor: audio edges around a kernel core.
 
 Port of `lyra_tpu/ops/fused_stack.py::FusedStackKernel`.  The graph
 analysis is the same pure-numpy dataflow partition (`_find_state_shapes`,
@@ -6,8 +6,12 @@ analysis is the same pure-numpy dataflow partition (`_find_state_shapes`,
 channel-1 activation is an audio *edge* op (SoundStream's first strided
 conv with its 48-sample input context; LyraGAN's final transpose conv with
 its overlap-add tail); edge ops ahead of the multi-channel core form the
-prologue, the rest the epilogue.  The edges run through the executor's op
-interpreter (tflite/executor.py, cuDNN on the card).
+prologue, the rest the epilogue.  An epilogue of LyraGAN's form (the
+transpose conv to one channel with a bias, its overlap-add state, views
+between) runs as one launch of the output-edge kernel (`_match_edge`,
+ops/out_edge.py); the prologue, and an epilogue of any other form, run
+through the executor's op interpreter (tflite/executor.py, cuDNN on the
+card).
 
 The core runs as a launch plan (`_build_plan`, built once from the graph in
 pure Python): one conv-stack kernel call (ops/conv_stack.py) per conv op,
@@ -57,7 +61,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence, Set,
 import numpy as np
 import torch
 
-from lyra_tpu_torch.ops import conv_stack, cuda_build
+from lyra_tpu_torch.ops import conv_stack, cuda_build, out_edge
 from lyra_tpu_torch.tflite import executor
 from lyra_tpu_torch.tflite import model as tfl
 from lyra_tpu_torch.tflite.executor import QUANT_MODES, GraphFn, State
@@ -83,6 +87,36 @@ def _is_c1(shape: Sequence[int]) -> bool:
     """Channel-1 / channel-less tensors stay on the edge side."""
     m = _mapped_shape(shape)
     return len(m) < 2 or m[-1] == 1
+
+
+def _window(sg, consts, i):
+    """((row0, rstride, rows), (col0, cstride, cols)) of the rows and
+    channels of [T, C] a STRIDED_SLICE (op i) keeps, else None."""
+    op = sg.ops[i]
+    full = sg.tensors[op.inputs[0]].shape
+    if (op.inputs[0] in consts or len(full) not in (3, 4)
+            or (len(full) == 4 and full[2] != 1) or any(
+                op.options.get(m, 0) for m in (
+                    "shrink_axis_mask", "ellipsis_mask", "new_axis_mask"))):
+        return None
+    idx = torch.arange(int(np.prod(full))).reshape(full)
+    got = executor.strided_slice(
+        idx, consts[op.inputs[1]], consts[op.inputs[2]],
+        consts[op.inputs[3]], op.options, full)
+    if got.numel() == 0 or got.ndim != len(full) or got.shape[0] != 1:
+        return None
+    g = got.reshape(got.shape[1], got.shape[-1])
+    c_full = full[-1]
+    rows, cols = g[:, 0] // c_full, g[0] % c_full
+    axes = []
+    for v in (rows, cols):
+        step = int(v[1] - v[0]) if len(v) > 1 else 1
+        if step < 1 or not torch.equal(v, v[0] + step * torch.arange(len(v))):
+            return None
+        axes.append((int(v[0]), step, len(v)))
+    if not torch.equal(g, rows[:, None] * c_full + cols[None, :]):
+        return None
+    return tuple(axes)
 
 
 _CONVS = ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")
@@ -180,6 +214,36 @@ class CoreLaunch(NamedTuple):
         return conv_stack.gather_plain(ops, self.arg, _batch(ops))
 
 
+class EdgeLaunch(NamedTuple):
+    """The epilogue's output edge (its TRANSPOSE_CONV to one channel and
+    the overlap-add tail after it) as one out_edge call on the core tensor
+    it reads, `[B, T, C]`, and its state, `[B, L]`."""
+    op: int  # the TRANSPOSE_CONV's index
+    kernel: cuda_build.KernelCounter
+    w: torch.Tensor  # [K, C]
+    bias: torch.Tensor  # [1]
+    stride: int
+    rows: int  # the conv's output rows N
+    x: int  # the core tensor it reads
+    state: str  # the state var of L samples
+    absorbed: Tuple[int, ...]  # every epilogue op
+
+    def __call__(self, x, state):
+        """→ (PCM [B, N − L] float32, new state [B, L])."""
+        return out_edge.out_edge(x, self.w, self.bias, self.stride,
+                                 self.rows, state)
+
+    def conv(self, x):
+        """The TRANSPOSE_CONV alone on the same kernel, [B, N, 1]."""
+        return out_edge.out_edge(x, self.w, self.bias, self.stride,
+                                 self.rows)
+
+    def plain(self, x, state):
+        """The plain version: the executor's ops, on any device."""
+        return out_edge.out_edge_plain(x, self.w, self.bias, self.stride,
+                                       self.rows, state)
+
+
 def _batch(parts) -> int:
     return next(p.src.shape[0] for p in parts if p.src.dim() == 3)
 
@@ -236,6 +300,7 @@ class FusedStack:
         self._partition()
         self._validate_core()
         self._build_plan()
+        self.edge = self._match_edge()
 
     # -- graph analysis (pure numpy) ------------------------------------------
     def _find_state_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -437,35 +502,7 @@ class FusedStack:
             return None
 
         def window(i):
-            """((row0, rstride, rows), (col0, cstride, cols)) of the rows and
-            channels of [T, C] a STRIDED_SLICE (op i) keeps, else None."""
-            op = sg.ops[i]
-            full = sg.tensors[op.inputs[0]].shape
-            if (op.inputs[0] in consts or len(full) not in (3, 4)
-                    or (len(full) == 4 and full[2] != 1) or any(
-                        op.options.get(m, 0) for m in (
-                            "shrink_axis_mask", "ellipsis_mask",
-                            "new_axis_mask"))):
-                return None
-            idx = torch.arange(int(np.prod(full))).reshape(full)
-            got = executor.strided_slice(
-                idx, consts[op.inputs[1]], consts[op.inputs[2]],
-                consts[op.inputs[3]], op.options, full)
-            if got.numel() == 0 or got.ndim != len(full) or got.shape[0] != 1:
-                return None
-            g = got.reshape(got.shape[1], got.shape[-1])
-            c_full = full[-1]
-            rows, cols = g[:, 0] // c_full, g[0] % c_full
-            axes = []
-            for v in (rows, cols):
-                step = int(v[1] - v[0]) if len(v) > 1 else 1
-                if step < 1 or not torch.equal(
-                        v, v[0] + step * torch.arange(len(v))):
-                    return None
-                axes.append((int(v[0]), step, len(v)))
-            if not torch.equal(g, rows[:, None] * c_full + cols[None, :]):
-                return None
-            return tuple(axes)
+            return _window(sg, consts, i)
 
         def time_range(i):
             """(begin, end) of a STRIDED_SLICE (op i) that cuts only the
@@ -828,16 +865,155 @@ class FusedStack:
         self.roles = {j: roles[j] for j in self._core}
         self.plan = plan
 
+    # -- the output edge ------------------------------------------------------
+    def _match_edge(self) -> Optional[EdgeLaunch]:
+        """The epilogue as one output-edge launch, where it is exactly
+        LyraGAN's: a TRANSPOSE_CONV from a core tensor [T, C] to [N, 1] with
+        a bias; the READ_VARIABLE of a state of L samples ADDed to its rows
+        0 .. L; its rows N − L .. N ASSIGNed to the same state; and the
+        CONCATENATION of that sum with its rows L .. N − L as the graph's
+        output, with RESHAPE, QUANTIZE and DEQUANTIZE read as views; and
+        within what the kernels take (out_edge.supported).  Else None: the
+        executor runs the epilogue op by op."""
+        sg, consts = self.sg, self._consts
+        producer: Dict[int, int] = {}
+        consumers: Dict[int, List[int]] = {}
+        for i in self._epilogue:
+            for o in sg.ops[i].outputs:
+                producer[o] = i
+            for t in sg.ops[i].inputs:
+                consumers.setdefault(t, []).append(i)
+        used: Set[int] = set()
+
+        def numel(t):
+            return int(np.prod(sg.tensors[t].shape))
+
+        def is_view(i):
+            op = sg.ops[i]
+            return op.name in _VIEWS and numel(op.inputs[0]) == numel(
+                op.outputs[0])
+
+        def readers(t):
+            """The epilogue's ops that read t, its views looked through."""
+            out = []
+            for c in consumers.get(t, []):
+                if is_view(c):
+                    used.add(c)
+                    out += readers(sg.ops[c].outputs[0])
+                else:
+                    out.append(c)
+            return out
+
+        def source(t):
+            """t with the views that produce it looked through."""
+            while (i := producer.get(t)) is not None and is_view(i):
+                used.add(i)
+                t = sg.ops[i].inputs[0]
+            return t
+
+        def one(ops, name):
+            return ops[0] if len(ops) == 1 and sg.ops[ops[0]].name == name \
+                else None
+
+        convs = [i for i in self._epilogue
+                 if sg.ops[i].name == "TRANSPOSE_CONV"]
+        if len(convs) != 1:
+            return None
+        i = convs[0]
+        op = sg.ops[i]
+        opts = op.options
+        if (len(op.inputs) < 4 or op.inputs[3] not in consts
+                or op.inputs[1] not in consts or op.inputs[0] not in consts
+                or opts["padding"] != "VALID" or opts["stride_w"] != 1):
+            return None
+        x_t, y_t = op.inputs[2], op.outputs[0]
+        w = np.asarray(consts[op.inputs[1]], np.float32)  # [1, K, 1, C]
+        x_shape, y_shape = sg.tensors[x_t].shape, sg.tensors[y_t].shape
+        if (w.ndim != 4 or w.shape[0] != 1 or w.shape[2] != 1
+                or list(x_shape) != [1, x_shape[1], 1, w.shape[3]]
+                or len(y_shape) != 4 or list(y_shape) != [1, y_shape[1], 1, 1]
+                or [int(v) for v in consts[op.inputs[0]]][1:3] != [
+                    y_shape[1], 1]
+                or x_t not in self._core_outputs):
+            return None
+        k, c, n, stride = w.shape[1], w.shape[3], y_shape[1], opts["stride_h"]
+        # The three slices of the conv's rows: head, middle and tail.
+        slices = readers(y_t)
+        if len(slices) != 3:
+            return None
+        ranges = {}
+        for j in slices:
+            win = (_window(sg, consts, j)
+                   if sg.ops[j].name == "STRIDED_SLICE" else None)
+            if win is None or win[0][1] != 1 or win[1] != (0, 1, 1):
+                return None
+            ranges[(win[0][0], win[0][0] + win[0][2])] = sg.ops[j].outputs[0]
+            used.add(j)
+        head = [r for r in ranges if r[0] == 0]
+        if not head:
+            return None
+        rows = head[0][1]
+        if (not out_edge.supported(x_shape[1], c, k, stride, n, rows)
+                or set(ranges) != {(0, rows), (rows, n - rows),
+                                   (n - rows, n)}):
+            return None
+        head, mid, tail = (ranges[r] for r in (
+            (0, rows), (rows, n - rows), (n - rows, n)))
+        # head + READ_VARIABLE, tail → ASSIGN_VARIABLE of the same state.
+        add = one(readers(head), "ADD")
+        asg = one(readers(tail), "ASSIGN_VARIABLE")
+        if add is None or asg is None:
+            return None
+        srcs = [source(t) for t in sg.ops[add].inputs]
+        if len(srcs) != 2 or head not in srcs or srcs[0] == srcs[1]:
+            return None
+        read = producer.get(srcs[1 - srcs.index(head)])
+        if (read is None or sg.ops[read].name != "READ_VARIABLE"
+                or readers(sg.ops[read].outputs[0]) != [add]
+                or source(sg.ops[asg].inputs[1]) != tail or read > asg):
+            return None
+        var = self._var_of_handle[sg.ops[read].inputs[0]]
+        if (self._var_of_handle.get(sg.ops[asg].inputs[0]) != var
+                or _mapped_shape(self._state_shapes[var]) != (rows, 1)
+                or sum(o.name in ("READ_VARIABLE", "ASSIGN_VARIABLE")
+                       and self._var_of_handle.get(o.inputs[0]) == var
+                       for o in sg.ops) != 2):
+            return None
+        # CONCATENATION(head + state, middle) along time → the output.
+        add_out = sg.ops[add].outputs[0]
+        cat = one(readers(add_out), "CONCATENATION")
+        if (cat is None or readers(mid) != [cat]
+                or [source(t) for t in sg.ops[cat].inputs] != [add_out, mid]
+                or _batch_axis(sg.ops[cat].options["axis"], len(
+                    sg.tensors[sg.ops[cat].outputs[0]].shape)) != 1
+                or readers(sg.ops[cat].outputs[0])
+                or source(self.output_idx) != sg.ops[cat].outputs[0]):
+            return None
+        used |= {i, read, add, asg, cat}
+        if used != set(self._epilogue):
+            return None
+        dev, dtype = self.device, self.graph.dtype
+
+        def as_t(a):
+            return torch.tensor(np.ascontiguousarray(a, np.float32),
+                                device=dev).to(dtype)
+
+        return EdgeLaunch(
+            i, out_edge.BY_DTYPE[dtype], as_t(w[0, :, 0, :]),
+            as_t(np.reshape(consts[op.inputs[3]], (1,))), stride, n, x_t,
+            var, tuple(self._epilogue))
+
     # -- public API -----------------------------------------------------------
     def init_state(self, batch_size: int) -> State:
         return self.graph.init_state(batch_size)
 
     def _edges(self):
-        # The audio edges run through cuDNN.  LyraGAN's output edge is a
-        # transposed conv, i.e. cuDNN's backward-data pass, whose fastest
-        # algorithms sum with atomics: the same inputs then give other bits
-        # from run to run (seen at B=1024 on an H100), and a CUDA-graph
-        # replay other bits than an eager launch.  Only cuDNN's
+        # The audio edges that no kernel takes run through cuDNN:
+        # SoundStream's input edge, and an output edge that `_match_edge`
+        # does not take.  A transposed conv is cuDNN's backward-data pass,
+        # whose fastest algorithms sum with atomics: the same inputs then
+        # give other bits from run to run (seen at B=1024 on an H100), and
+        # a CUDA-graph replay other bits than an eager launch.  Only cuDNN's
         # deterministic algorithms here, then, and no TF32: PyTorch allows
         # TF32 in cuDNN by default, so a process that does not turn it off
         # (a spawned serving host) would otherwise run the float edges at
@@ -884,6 +1060,14 @@ class FusedStack:
                 core[launch.out] = y
         if marks:
             trace.mark(marks[2], x)
+        edge = self.edge
+        if edge is not None:
+            shape = self._state_shapes[edge.state]
+            pcm, side = edge(core[self._core_outputs[edge.x]],
+                             state[edge.state].reshape(b, -1).contiguous())
+            new_state[edge.state] = side.view((b,) + tuple(shape))
+            return pcm.view((b,) + tuple(
+                self.sg.tensors[self.output_idx].shape[1:])), new_state
         for t, src in self._core_outputs.items():
             env[t] = core[src].view((b,) + tuple(self.sg.tensors[t].shape[1:]))
         with self._edges():
@@ -892,11 +1076,14 @@ class FusedStack:
 
     def unfused(self, state: State, x: torch.Tensor):
         """The same hop op by op: the core's convs on the conv-stack kernels
-        without fused operands, every other op a torch op."""
+        without fused operands, the output edge's TRANSPOSE_CONV on its
+        kernel without its tail, every other op a torch op."""
         env: Dict[int, torch.Tensor] = {self.input_idx: x.to(self.graph.dtype)}
         new_state = dict(state)
         convs = {launch.op: _plain_call(launch) for launch in self.plan
                  if isinstance(launch, FusedLaunch)}
+        if self.edge is not None:
+            convs[self.edge.op] = self.edge.conv
         with self._edges():
             self.graph.run_ops(self._prologue + self._core + self._epilogue,
                                env, new_state, convs=convs)

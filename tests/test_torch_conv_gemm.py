@@ -488,3 +488,73 @@ def test_depthwise_vector_path_shapes():
         for dtype in (f32, bf16):
             assert conv_stack.depthwise_plan((4, 10, c), 3, 1,
                                              dtype=dtype).vec
+
+
+# -- LyraGAN's output edge (ops/csrc/out_edge.cu) -----------------------------
+
+EDGE_T, EDGE_K, EDGE_S, EDGE_N, EDGE_L = 80, 52, 4, 368, 48
+
+
+def _swz(r, chunk):
+    """The byte offset of 16-byte unit `chunk` of row r in a TMA box with
+    the 128-byte swizzle (out_edge.cu `swz`)."""
+    return r * 128 + ((chunk ^ (r & 7)) << 4)
+
+
+@pytest.mark.parametrize("c", [8, 64])
+def test_out_edge_maps_in_numpy(c):
+    """The output-edge kernels' maps, walked in numpy: Y = x · wᵀ from the
+    f32 lanes (warp w: columns 13w .. 13w + 12; lane: stream lane / 16,
+    rows 5·(lane mod 16) ..) and from the bf16 warps (stream w / 2, n8
+    tiles 4·(w mod 2) .., every m16 tile) each cover Y [2, T, 52] once;
+    the epilogue's sum of 13 taps, one float4 of Y a tap, is the transpose
+    conv; and the swizzled reads (f32: rows 5 apart, one 16-byte unit; bf16
+    ldmatrix: 8 consecutive rows) hit 8 bank groups per 8 lanes."""
+    from lyra_tpu_torch.ops import out_edge
+    assert out_edge.supported(EDGE_T, c, EDGE_K, EDGE_S, EDGE_N, EDGE_L)
+    rng = np.random.default_rng(c)
+    x = rng.normal(size=(2, EDGE_T, c))
+    w = rng.normal(size=(EDGE_K, c))
+    cols = EDGE_S * 13
+    y = np.zeros((2, EDGE_T, cols))
+    seen = np.zeros(y.shape, int)
+    for warp in range(4):  # f32
+        for lane in range(32):
+            s, t0 = lane // 16, 5 * (lane % 16)
+            for i in range(5):
+                for k in range(13 * warp, 13 * warp + 13):
+                    if t0 + i < EDGE_T and k < EDGE_K:
+                        y[s, t0 + i, k] = x[s, t0 + i] @ w[k]
+                    seen[s, t0 + i, k] += 1
+    assert (seen == 1).all()
+    seen[:] = 0
+    for warp in range(4):  # bf16
+        s, n0 = warp // 2, 4 * (warp % 2)
+        for m in range(EDGE_T // 16):
+            for n in range(n0, min(n0 + 4, 7)):
+                for row in range(16 * m, 16 * m + 16):
+                    for col in range(8 * n, min(8 * n + 8, cols)):
+                        seen[s, row, col] += 1
+    assert (seen == 1).all()
+    # The epilogue: out[4j + p] = Σ_a Y[j − a][p + 4a], a < 13, in float4s.
+    out = np.zeros((2, EDGE_N))
+    for j in range(EDGE_N // 4):
+        for a in range(13):
+            if 0 <= j - a < EDGE_T:
+                out[:, 4 * j:4 * j + 4] += y[:, j - a, 4 * a:4 * a + 4]
+    ref = np.zeros((2, (EDGE_T - 1) * EDGE_S + EDGE_K))
+    for t in range(EDGE_T):
+        ref[:, EDGE_S * t:EDGE_S * t + EDGE_K] += x[:, t] @ w.T
+    np.testing.assert_allclose(out, ref[:, :EDGE_N], rtol=1e-12, atol=1e-12)
+    # Bank groups (16-byte units mod 8) of one quarter warp's reads.
+    for q in range(2):  # f32: lanes 8q .. 8q + 7, rows 5 apart, unit u
+        for i in range(5):
+            for u in range(8):
+                groups = {_swz(5 * lane + i, u) // 16 % 8
+                          for lane in range(8 * q, 8 * q + 8)}
+                assert len(groups) == 8
+    for m in range(5):  # bf16: an 8x8 matrix of ldmatrix, unit u
+        for half in range(2):
+            for u in range(8):
+                rows = range(16 * m + 8 * half, 16 * m + 8 * half + 8)
+                assert len({_swz(r, u) // 16 % 8 for r in rows}) == 8

@@ -21,10 +21,10 @@ import torch
 from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
 from lyra_tpu_torch.dsp.resampler import Resampler
 from lyra_tpu_torch.models.streaming import mask_tree
-from lyra_tpu_torch.ops import conv_stack, rvq_kernel
+from lyra_tpu_torch.ops import conv_stack, out_edge, rvq_kernel
 from lyra_tpu_torch.ops.fused_stack import FusedStack
 from lyra_tpu_torch.tflite.executor import load_graph
-from lyra_tpu_torch.utils import capture
+from lyra_tpu_torch.utils import capture, trace
 
 pytestmark = pytest.mark.cuda
 
@@ -935,6 +935,153 @@ def test_islands_fused_stack_on_card(cuda, name, shape):
         got = {k.name: k.launches - b
                for k, b in zip(conv_stack.KERNELS, before) if k in core}
         assert got == {core[0].name: 30, core[1].name: 20}
+
+
+# -- LyraGAN's output edge (ops/csrc/out_edge.cu) ----------------------------
+
+
+def _edge_operands(batch, dtype, dev, c=64, seed=0):
+    """x [B, 80, C], w [52, C], bias [1] and state [B, 48] of the edge."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, 80, c, device=dev, generator=g).to(dtype)
+    w = (torch.randn(52, c, device=dev, generator=g) * 0.1).to(dtype)
+    bias = torch.randn(1, device=dev, generator=g).to(dtype)
+    state = torch.randn(batch, 48, device=dev, generator=g).to(dtype)
+    return x, w, bias, state
+
+
+def _bf16_ulp(m):
+    """One bf16 ulp (8 significant bits) at magnitude m, elementwise."""
+    m = m.float().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_edge_matches_executor_edge(cuda, dtype, batch):
+    """The kernel against the executor's op-by-op edge on cuDNN (TF32 off,
+    deterministic): f32 within 1e-6 of max|ref|.  bf16: the reference is
+    the same edge rounded where the graph rounds (cuDNN's conv in f32 on
+    the bf16 operands, the bias included, rounded once, then the graph's
+    bf16 ADD; the executor's bf16 conv rounds once more, before the bias)
+    and every sample within one bf16 ulp of the larger of it and the conv
+    sample it sums, or within 1e-5 of max|ref| where that is more: near
+    zero, the two f32 sums' orders alone differ by more than an ulp."""
+    x, w, bias, state = _edge_operands(batch, dtype, cuda, seed=batch)
+    kernel = out_edge.BY_DTYPE[dtype]
+    n = kernel.launches
+    pcm, new_state = out_edge.out_edge(x, w, bias, 4, 368, state)
+    assert kernel.launches == n + 1
+    assert pcm.dtype == torch.float32 and pcm.shape == (batch, 320)
+    assert new_state.dtype == dtype and new_state.shape == (batch, 48)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    allow_tf32=False):
+        if dtype == torch.float32:
+            ref, ref_state = out_edge.out_edge_plain(x, w, bias, 4, 368, state)
+            bar = 1e-6 * ref.abs().max().item()
+            assert (pcm - ref).abs().max().item() <= bar
+            assert (new_state - ref_state).abs().max().item() <= bar
+            return
+        y = out_edge.out_edge_plain(x.float(), w.float(), bias.float(), 4,
+                                    368).to(dtype)[..., 0]
+    ref = torch.cat([y[:, :48] + state, y[:, 48:320]], 1).float()
+    conv = y[:, :320].float()
+    floor = 1e-5 * ref.abs().max().item()
+    assert torch.all((pcm - ref).abs() <= _bf16_ulp(
+        torch.maximum(ref.abs(), conv.abs())).clamp_min(floor))
+    ref_state = y[:, 320:].float()
+    assert torch.all((new_state.float() - ref_state).abs()
+                     <= _bf16_ulp(ref_state.abs()).clamp_min(floor))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_edge_is_bitwise_repeatable_and_replayable(cuda, dtype):
+    """Over 10 hops with the state carried, two eager runs and a CUDA-graph
+    replay of each hop give the same bits: no sum depends on scheduling."""
+    x0, w, bias, state0 = _edge_operands(1024, dtype, cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(x0.shape, device=cuda, generator=g).to(dtype)
+          for _ in range(10)]
+
+    def eager():
+        state, out = state0.clone(), []
+        for x in xs:
+            pcm, state = out_edge.out_edge(x, w, bias, 4, 368, state)
+            out.append((pcm, state))
+        return out
+
+    first, second = eager(), eager()
+    x_in, s_in = torch.empty_like(xs[0]), state0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out_edge.out_edge(x_in, w, bias, 4, 368, s_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_pcm, g_state = out_edge.out_edge(x_in, w, bias, 4, 368, s_in)
+    for x, (pcm, state), (pcm2, state2) in zip(xs, first, second):
+        x_in.copy_(x)
+        graph.replay()
+        assert torch.equal(pcm, pcm2) and torch.equal(state, state2)
+        assert torch.equal(g_pcm, pcm) and torch.equal(g_state, state)
+        s_in.copy_(g_state)
+
+
+def test_out_edge_counts_a_launch_and_its_rows_a_hop(cuda):
+    """FusedStack's LyraGAN launches the edge kernel once a hop, and the
+    tracer's `gan.edge_rows` counts the hop's streams."""
+    fused = FusedStack(os.path.join(FULL, "lyragan.tflite"), device=cuda)
+    assert fused.edge is not None
+    st = fused.init_state(8)
+    x = _t(np.random.default_rng(8).normal(0, 1.0, (8, 1, 64)), cuda)
+    trace.drain()
+    trace.enable()
+    try:
+        n = out_edge.OUT_EDGE.launches
+        for _ in range(3):
+            _, st = fused(st, x)
+        torch.cuda.synchronize()
+        _, counts = trace.drain()
+    finally:
+        trace.disable()
+    assert out_edge.OUT_EDGE.launches == n + 3
+    assert counts.get("gan.edge_rows") == 3 * 8
+
+
+def test_islands_lyragan_edge_is_bitwise_unfused(cuda):
+    """The islands fixture's full LyraGAN (a DEQUANTIZE after its edge's
+    conv) through FusedStack, whose epilogue is one edge launch, gives the
+    bits of its unfused hop (the edge's conv alone on the same kernel, the
+    tail as torch ops), output and state, over 10 hops in f32."""
+    fused = FusedStack(os.path.join(ISLANDS, "full", "lyragan.tflite"),
+                       device=cuda)
+    assert fused.edge is not None
+    fs = us = fused.init_state(8)
+    rng = np.random.default_rng(9)
+    n = out_edge.OUT_EDGE.launches
+    for _ in range(10):
+        x = _t(rng.normal(0, 1.0, (8, 1, 64)), cuda)
+        y, fs = fused(fs, x)
+        u, us = fused.unfused(us, x)
+        assert torch.equal(y, u)
+        assert all(torch.equal(fs[k], us[k]) for k in us)
+    assert out_edge.OUT_EDGE.launches == n + 20
+
+
+def test_launcher_edge_rule_matches_supported(cuda):
+    """lyra_gan_out_edge_supported (the launchers' rule) equals
+    out_edge.supported over shapes on both sides of every limit."""
+    lib = out_edge._lib()
+    for t in (16, 48, 79, 80, 96):
+        for c in (4, 8, 12, 16, 64, 128):
+            for k in (4, 52, 53):
+                for stride in (2, 4):
+                    for n in (8, 320, 368, 369, 400):
+                        for l in (0, 8, 12, 48, 200):
+                            assert bool(lib.lyra_gan_out_edge_supported(
+                                t, c, k, stride, n, l)) == out_edge.supported(
+                                t, c, k, stride, n, l), (t, c, k, stride, n, l)
 
 
 # -- multi-device serving (lyra_tpu_torch/parallel/sharding.py) -------------

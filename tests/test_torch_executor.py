@@ -363,3 +363,92 @@ def test_copied_modules_match_jax_package(module, name):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert _code(os.path.join(repo, "lyra_tpu_torch", module), name) == \
         _code(os.path.join(repo, "lyra_tpu", module), name)
+
+
+# -- LyraGAN's output edge (ops/fused_stack.py `_match_edge`, ops/out_edge.py)
+
+GOLDEN = os.path.dirname(SMALL)
+EDGE_FIXTURES = {
+    "small": os.path.join(SMALL, "lyragan.tflite"),
+    "full": os.path.join(GOLDEN, "full", "lyragan.tflite"),
+    "islands-small": os.path.join(os.path.dirname(GOLDEN),
+                                  "synthetic_lyra_islands", "small",
+                                  "lyragan.tflite"),
+    "islands-full": os.path.join(os.path.dirname(GOLDEN),
+                                 "synthetic_lyra_islands", "full",
+                                 "lyragan.tflite"),
+}
+
+
+@pytest.mark.parametrize("mode", ["float", "bf16"])
+@pytest.mark.parametrize("fixture", sorted(EDGE_FIXTURES))
+def test_output_edge_takes_lyragan_epilogue(fixture, mode):
+    """Every fixture's LyraGAN epilogue (the islands fixture's with a
+    DEQUANTIZE after the transpose conv) is one output-edge launch: the
+    conv from the core's [80, C] to [368, 1], kernel 52, stride 4, and a
+    state of 48 samples; the launch takes every epilogue op."""
+    t = FusedStack(EDGE_FIXTURES[fixture], mode=mode, device="cpu")
+    edge = t.edge
+    assert edge is not None
+    assert edge.absorbed == tuple(t._epilogue)
+    assert t.sg.ops[edge.op].name == "TRANSPOSE_CONV"
+    assert (edge.stride, edge.rows) == (4, 368)
+    c = 8 if fixture.endswith("small") else 64
+    assert tuple(edge.w.shape) == (52, c) and edge.w.dtype == t.graph.dtype
+    assert edge.x in t._core_outputs
+    assert t._state_shapes[edge.state] == (1, 48, 1, 1)
+    from lyra_tpu_torch.ops import out_edge
+    assert edge.kernel is out_edge.BY_DTYPE[t.graph.dtype]
+
+
+def _doctor(t, how):
+    """Change one thing of t's epilogue as a graph of another form would."""
+    sg = t.sg
+    conv = next(sg.ops[i] for i in t._epilogue
+                if sg.ops[i].name == "TRANSPOSE_CONV")
+    if how == "two_channels":  # a second output channel
+        w = t._consts[conv.inputs[1]]
+        t._consts[conv.inputs[1]] = np.concatenate([w, w], axis=0)
+    elif how == "no_assign":  # the tail is not stored
+        t._epilogue = [i for i in t._epilogue
+                       if sg.ops[i].name != "ASSIGN_VARIABLE"]
+    elif how == "no_bias":
+        conv.inputs = conv.inputs[:3]
+    elif how == "stride_2":  # no kernel instance for it
+        conv.options = dict(conv.options, stride_h=2)
+    elif how == "state_from_tail":  # the head adds the conv's own tail
+        add = next(sg.ops[i] for i in t._epilogue if sg.ops[i].name == "ADD")
+        tail = next(sg.ops[i] for i in t._epilogue
+                    if sg.ops[i].name == "ASSIGN_VARIABLE").inputs[1]
+        add.inputs = [add.inputs[0], tail]
+
+
+@pytest.mark.parametrize("how", ["two_channels", "no_assign", "no_bias",
+                                 "stride_2", "state_from_tail"])
+def test_output_edge_refuses_other_epilogues(how):
+    """An epilogue of another form is not taken: the executor keeps it."""
+    t = FusedStack(EDGE_FIXTURES["small"], device="cpu")
+    assert t._match_edge() is not None
+    _doctor(t, how)
+    assert t._match_edge() is None
+
+
+@pytest.mark.parametrize("mode", ["float", "bf16"])
+@pytest.mark.parametrize("fixture", ["small", "islands-small", "full"])
+def test_output_edge_plain_is_bitwise_the_executor_epilogue(fixture, mode):
+    """On CPU tensors the output edge runs its plain version, which gives
+    the bits of the executor's op-by-op epilogue: output and every state
+    leaf over 10 hops with state carried; and `unfused` runs the same."""
+    t = FusedStack(EDGE_FIXTURES[fixture], mode=mode, device="cpu")
+    ref = FusedStack(EDGE_FIXTURES[fixture], mode=mode, device="cpu")
+    ref.edge = None  # the executor's epilogue
+    st = rs = us = t.init_state(B)
+    for x in _inputs("lyragan", 5)[:10]:
+        x = torch.from_numpy(x)
+        y, st = t(st, x)
+        r, rs = ref(rs, x)
+        u, us = t.unfused(us, x)
+        assert y.dtype == torch.float32 and y.shape == (B, 320)
+        assert torch.equal(y, r) and torch.equal(y, u)
+        for k in rs:
+            assert torch.equal(st[k], rs[k]) and torch.equal(us[k], rs[k]), k
