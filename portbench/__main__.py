@@ -23,8 +23,33 @@ import sys  # noqa: E402
 FORBIDDEN = ("jax", "jaxlib", "flax", "lyra_tpu")
 
 
+# glibc's mallopt parameters: blocks up to 32 MiB come from the heap, and
+# a freed block stays there.
+M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+MMAP_THRESHOLD = 32 << 20  # glibc's largest
+TRIM_THRESHOLD = 1 << 30
+
+
 def forbidden_loaded() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def keep_heap() -> bool:
+    """Serve each tick's host arrays (a fleet's PCM is 9 MB a tick each
+    way) from pages the process already has, as a long-running server's
+    grown heap does: glibc otherwise maps a block of this size afresh at
+    each allocation and returns it at the free, and a young process pays
+    a page fault on every page of every tick's arrays (the first minute
+    of a fleet's run twice as slow as later).  → whether the C library
+    took the settings."""
+    import ctypes
+
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (AttributeError, OSError):
+        return False
+    return bool(mallopt(M_MMAP_THRESHOLD, MMAP_THRESHOLD)) and \
+        bool(mallopt(M_TRIM_THRESHOLD, TRIM_THRESHOLD))
 
 
 def main(argv=None) -> int:
@@ -34,6 +59,7 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
+    heap_kept = keep_heap()
 
     import torch
 
@@ -56,6 +82,7 @@ def main(argv=None) -> int:
         print(f"portbench: the run loaded {', '.join(found)}; no result",
               file=sys.stderr)
         return 3
+    notes.append(f"host heap kept (glibc mallopt): {heap_kept}")
     for line in notes:
         print(line, file=sys.stderr)
     for name, c in result["checks"].items():

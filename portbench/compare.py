@@ -31,14 +31,29 @@ TF32 off, after the program's state is freed:
              packet size (every stream sends every hop: no DTX).  Exact.
   lost_ticks ticks of the run that returned no PCM.  Exact.
 
+In a fleet (portbench/fleet.py) a row changes hands, and a stream is a
+tenure: one admission of one row, at its row's rate and its own bitrate.
+The reference follows every tenure of each sampled row from a fresh state
+at its admission: the encoder from the tick before whose submit it was
+admitted, scored on the ticks whose packet the wire holds; the decoder
+from the first wire tick it stepped (the one in flight at the admission,
+whose packet the server drops as the slot's old owner's), fed the codes
+at the tenure's own stages, compared where the PCM drained is still its
+own (a slot that changed hands between submit and drain drains silence).
+`bad_sizes` then holds each row to its owner's packet size at the submit,
+and to 0 where no packet is due: an empty row, or one that changed hands
+before the drain.  The quartile of pcm_rms_err is over tenures.
+
 A number is compared where the configuration's file gives it a limit
 (`limits`); the readings each limit was set from are in PERF.md.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,6 +62,7 @@ from portbench.reference import codec
 
 NUMBERS = ("code_gap", "pcm_err", "pcm_rms_err", "bad_sizes", "lost_ticks")
 CHECK_ROWS = 32  # sampled streams, half of them on the bursty rows
+GAP_ROWS = 2048  # codes scored at once
 
 
 def sample_rows(seed: int, streams: int, burst_rows: np.ndarray) -> np.ndarray:
@@ -61,27 +77,95 @@ def sample_rows(seed: int, streams: int, burst_rows: np.ndarray) -> np.ndarray:
     return np.sort(np.concatenate(picks))
 
 
+def sample_fleet_rows(seed: int, admitted: np.ndarray, rates: np.ndarray,
+                      bits: np.ndarray, waves: np.ndarray,
+                      burst_rows: np.ndarray, n: int, each: int = 4,
+                      per_wave: int = 2) -> np.ndarray:
+    """`n` of a fleet's `admitted` rows, drawn from the seed: half with
+    bursts, at least `per_wave` of every wave (one server each way) and at
+    least `each` of every rate and every bitrate (`rates`, `bits`, `waves`:
+    each row's).  A pick first fills a wave short of its rows, then a rate
+    or a bitrate short of its."""
+    on = np.flatnonzero(admitted)
+    rng = np.random.default_rng([seed, 3])
+    pools = [list(rng.permutation(on[burst_rows[on]])),
+             list(rng.permutation(on[~burst_rows[on]]))]
+    # Each kind of group: its values by row, its least, its rows so far.
+    kinds = [(g, least, {int(v): 0 for v in np.unique(g[on])})
+             for g, least in ((waves, per_wave), (rates, each), (bits, each))]
+
+    def short(row, of) -> int:
+        return sum(c[int(g[row])] < least for g, least, c in of)
+
+    def helps(row) -> tuple:
+        return short(row, kinds[:1]), short(row, kinds[1:])
+
+    picks: List[int] = []
+    for k in range(min(n, on.size)):
+        pool = pools[k % 2] if pools[k % 2] else pools[1 - k % 2]
+        row = max(pool, key=helps)  # the first of the most helpful
+        pool.remove(row)
+        picks.append(row)
+        for g, _, c in kinds:
+            c[int(g[row])] += 1
+    return np.sort(np.asarray(picks, np.int64))
+
+
 class Record:
     """What the program produced for the sampled rows, tick by tick, and
-    the exact counts over all streams."""
+    the exact counts over all rows.  With a `fleet` (portbench/fleet.py)
+    the rows change hands: each tick's owners are kept as the encoder and
+    the decoder took it, so the reference follows every tenure."""
 
-    def __init__(self, rows: np.ndarray, packet_bytes: int):
+    def __init__(self, rows: np.ndarray, packet_bytes: Optional[int],
+                 fleet=None):
         self.rows = rows
         self.packet_bytes = packet_bytes
+        self.fleet = fleet
         self.wire: Dict[int, np.ndarray] = {}
         self.received: Dict[int, np.ndarray] = {}
         self.pcm: Dict[int, np.ndarray] = {}
         self.bad_sizes = 0
         self.lost_ticks = 0
+        # A fleet's: the tenure whose packet the wire's row holds (−1: none
+        # due), the tenure the decoder stepped, and whether the PCM drained
+        # is still that tenure's, by tick, at the sampled rows.
+        self._submits: Dict[int, tuple] = {}
+        self._sends: Dict[int, tuple] = {}
+        self.enc_owner: Dict[int, np.ndarray] = {}
+        self.dec_owner: Dict[int, np.ndarray] = {}
+        self.dec_ok: Dict[int, np.ndarray] = {}
+
+    def submitted(self, t: int) -> None:
+        """Tick t's PCM goes to the encoder now."""
+        f = self.fleet
+        if f is not None:
+            self._submits[t] = (f.owner.copy(), f.gen.copy(), f.bits.copy())
 
     def encoded(self, t: int, wire: np.ndarray, sizes: np.ndarray) -> None:
-        self.bad_sizes += int(np.count_nonzero(sizes != self.packet_bytes))
+        expected = self.packet_bytes
+        if self.fleet is not None:
+            # A server emits each row admitted at the submit that has not
+            # changed hands since, at its owner's size; no other.
+            owner, gen, bits = self._submits.pop(t)
+            due = (owner >= 0) & (gen == self.fleet.gen)
+            expected = np.where(due, -(-bits // 8), 0)
+            self.enc_owner[t] = np.where(due, owner, -1)[self.rows]
+        self.bad_sizes += int(np.count_nonzero(sizes != expected))
         self.wire[t] = wire[self.rows].copy()
 
     def sent(self, t: int, received: np.ndarray) -> None:
         self.received[t] = received[self.rows].copy()
+        f = self.fleet
+        if f is not None:
+            self._sends[t] = (f.owner[self.rows].copy(),
+                              f.gen[self.rows].copy())
 
     def decoded(self, t: int, pcm) -> None:
+        if self.fleet is not None:
+            owner, gen = self._sends.pop(t)
+            self.dec_owner[t] = owner
+            self.dec_ok[t] = (owner >= 0) & (gen == self.fleet.gen[self.rows])
         if pcm is None:
             self.lost_ticks += 1
             return
@@ -90,72 +174,192 @@ class Record:
     def ticks(self) -> List[int]:
         return sorted(self.wire)
 
+    def wire_of(self, at: int, ticks) -> np.ndarray:
+        """[len(ticks), bytes] the wire of the sampled row `at` (a fleet's
+        width follows its widest packet: narrower ticks padded with 0)."""
+        rows = [self.wire[t][at] for t in ticks]
+        out = np.zeros((len(rows), max(r.size for r in rows)), np.uint8)
+        for i, r in enumerate(rows):
+            out[i, :r.size] = r
+        return out
+
+    def lanes(self, rate: int) -> List["Lane"]:
+        """The streams the reference follows: each sampled row over the
+        whole run at `rate` and the mix's packet size, or in a fleet each
+        tenure that a sampled row held."""
+        ticks = self.ticks()
+        if self.fleet is None:
+            stages = self.packet_bytes * 8 // 4
+            return [Lane(i, int(r), int(r), rate, stages, 0, ticks, ticks,
+                         ticks) for i, r in enumerate(self.rows)]
+        enc = np.stack([self.enc_owner[t] for t in ticks])
+        dec_ticks = sorted(self.dec_owner)
+        dec = np.stack([self.dec_owner[t] for t in dec_ticks])
+        ok = np.stack([self.dec_ok[t] for t in dec_ticks])
+        cap = self.fleet.layout.capacity
+        out = []
+        for i, row in enumerate(self.rows):
+            for tid in np.unique(dec[:, i][dec[:, i] >= 0]):
+                ten = self.fleet.tenures[tid]
+                stepped = [dec_ticks[j] for j in np.flatnonzero(
+                    dec[:, i] == tid)]
+                compared = [dec_ticks[j] for j in np.flatnonzero(
+                    (dec[:, i] == tid) & ok[:, i])]
+                coded = [ticks[j] for j in np.flatnonzero(enc[:, i] == tid)]
+                out.append(Lane(i, int(row), int(row) % cap, ten.rate,
+                                ten.bits // 4, ten.admitted, coded, stepped,
+                                compared))
+        return out
+
+
+@dataclasses.dataclass
+class Lane:
+    """One stream the reference follows: the sampled row's index in the
+    record (`at`), its pool row and its slot in its server (the comfort
+    noise's lineage), its rate and RVQ stages; the encoder from a fresh
+    state at `admitted`, scored at the ticks whose codes the wire holds
+    (`coded`); the decoder from a fresh state at the first tick of
+    `stepped`, through each, compared where the PCM is still its own
+    (`compared`)."""
+    at: int
+    row: int
+    slot: int
+    rate: int
+    stages: int
+    admitted: int
+    coded: List[int]
+    stepped: List[int]
+    compared: List[int]
+
 
 def judge(rec: Record, traffic, model_dir: str, sample_rate_hz: int,
           device, seed: int = 0) -> Dict[str, float]:
-    """The reference over every recorded tick of the sampled rows; →
-    {number: reading}, and under "_worst" where the largest PCM gap lay.
-    `seed` is the decoder server's (its comfort-noise RNG lineage)."""
+    """The reference over every recorded tick of the sampled rows' streams
+    (`Record.lanes`), one rate at a time; → {number: reading}, and under
+    "_worst" where the largest PCM gap lay.  `seed` is the decoder
+    servers' (its comfort-noise RNG lineage)."""
     t0 = time.perf_counter()
     ticks = rec.ticks()
     if ticks != list(range(len(ticks))):
         raise ValueError("the record does not start at tick 0 or has gaps")
+    lanes = rec.lanes(sample_rate_hz)
+    gaps: Dict[int, List[tuple]] = {}
+    acc = []
     with torch.backends.cudnn.flags(enabled=True, deterministic=True,
                                     allow_tf32=False), _no_tf32_matmul(), \
             torch.inference_mode():
-        enc = codec.Encoder(model_dir, sample_rate_hz, device)
-        dec = codec.Decoder(model_dir, sample_rate_hz, device)
-        rows = rec.rows
-        stages = rec.packet_bytes * 8 // 4
-        feats = enc.features(
-            lambda t: torch.as_tensor(traffic.pcm(t)[rows], device=device),
-            len(ticks), rows.size)
-        codes = torch.as_tensor(np.stack(
-            [codec.unpack_wire(rec.wire[t], stages) for t in ticks]),
-            device=device)
-        gap = max(float(codec.code_gaps(
-            feats[i:i + 64].reshape(-1, feats.shape[-1]),
-            codes[i:i + 64].reshape(-1, stages), dec.codebooks).max())
-            for i in range(0, len(ticks), 64))
-        ds = dec.init_state(rows, seed)
-        peak = torch.zeros(rows.size, dtype=torch.float64, device=device)
-        diff, at = torch.zeros_like(peak), torch.zeros_like(peak)
-        sq_err, sq_ref = torch.zeros_like(peak), torch.zeros_like(peak)
-        fade = []
-        for t in ticks:
-            if t not in rec.pcm:
-                continue
-            recv = torch.as_tensor(rec.received[t], device=device)
-            ref, ds = dec.step(ds, codes[t], recv)
-            ref = ref.double()
-            err = torch.as_tensor(rec.pcm[t], device=device).double() - ref
-            peak = torch.maximum(peak, ref.abs().amax(dim=1))
-            e = err.abs().amax(dim=1)
-            at = torch.where(e > diff, float(t), at)
-            diff = torch.maximum(diff, e)
-            sq_err += (err * err).sum(dim=1)
-            sq_ref += (ref * ref).sum(dim=1)
-            fade.append(ds["fade"])
-        rel = diff / peak.clamp_min(1.0)
-        rms = (sq_err / sq_ref.clamp_min(1.0)).sqrt()
-        w = int(rel.argmax())
-        worst_t = int(at[w])
-        fades = torch.stack(fade)[:, w].tolist()
+        for rate in sorted({ln.rate for ln in lanes}):
+            group = [ln for ln in lanes if ln.rate == rate]
+            enc = codec.Encoder(model_dir, rate, device)
+            dec = codec.Decoder(model_dir, rate, device)
+            coded = [ln for ln in group if ln.coded]
+            hop = rate // 50
+            rows = np.array([rec.rows[ln.at] for ln in coded])
+            feats = enc.features(
+                lambda t, k: traffic.pcm_at(t, rows[k])[:, :hop],
+                [(ln.admitted, ln.coded[-1] + 1) for ln in coded])
+            for ln, f in zip(coded, feats):
+                codes = codec.unpack_wire(rec.wire_of(ln.at, ln.coded),
+                                          ln.stages)
+                gaps.setdefault(ln.stages, []).append(
+                    (f[np.asarray(ln.coded) - ln.admitted],
+                     torch.as_tensor(codes, device=device)))
+            acc += _decode(rec, dec, [ln for ln in group if ln.stepped],
+                           hop, seed, device)
+        gap = 0.0
+        for stages, parts in gaps.items():
+            f = torch.cat([p[0] for p in parts])
+            c = torch.cat([p[1] for p in parts])
+            for i in range(0, f.shape[0], GAP_ROWS):
+                gap = max(gap, float(codec.code_gaps(
+                    f[i:i + GAP_ROWS], c[i:i + GAP_ROWS],
+                    dec.codebooks).max()))
+    lanes = [a for a in acc if a["compared"]]
+    rel = torch.tensor([a["diff"] / max(a["peak"], 1.0) for a in lanes],
+                       dtype=torch.float64)
+    rms = torch.tensor([math.sqrt(a["sq_err"] / max(a["sq_ref"], 1.0))
+                        for a in lanes], dtype=torch.float64)
+    w = int(rel.argmax())
+    worst = lanes[w]
     return {"code_gap": gap, "pcm_err": float(rel[w]),
             "pcm_rms_err": float(rms.sort(descending=True).values[
-                -(-rows.size // 4) - 1]),
+                -(-len(lanes) // 4) - 1]),
             "bad_sizes": float(rec.bad_sizes),
             "lost_ticks": float(rec.lost_ticks),
             "_seconds": time.perf_counter() - t0,
             "_ticks": float(len(ticks)),
-            "_worst": {"slot": int(rows[w]), "tick": worst_t,
-                       "lsb": float(diff[w]), "peak": float(peak[w]),
+            "_streams": float(len(lanes)),
+            "_worst": {"slot": worst["lane"].row, "tick": worst["at"],
+                       **({"rate": worst["lane"].rate,
+                           "stages": worst["lane"].stages,
+                           "admitted": worst["lane"].admitted}
+                          if rec.fleet is not None else {}),
+                       "lsb": worst["diff"], "peak": worst["peak"],
                        "rms_err": float(rms[w]),
-                       "fade_before": fades[worst_t - 1] if worst_t else 0,
-                       "fade_after": fades[worst_t],
-                       "received": bool(rec.received[worst_t][w]),
+                       "fade_before": worst["fade_before"],
+                       "fade_after": worst["fade_after"],
+                       "received": worst["received"],
                        "rows_over_10x_median_rms": int(
                            (rms > 10 * rms.median()).sum())}}
+
+
+def _decode(rec: Record, dec, lanes: List[Lane], hop: int, seed: int,
+            device) -> List[dict]:
+    """The reference decoder over `lanes` side by side, each from a fresh
+    state at its first stepped tick, fed the codes and losses the
+    program's decoder was; → each lane's PCM error sums."""
+    if not lanes:
+        return []
+    at = [ln.at for ln in lanes]
+    first = torch.tensor([ln.stepped[0] for ln in lanes], device=device)
+    last = torch.tensor([ln.stepped[-1] for ln in lanes], device=device)
+    lo, hi = int(first.min()), int(last.max())
+    stages = max(ln.stages for ln in lanes)
+    # Each lane's codes at each tick, −1 past its own stages.
+    codes = np.full((hi + 1 - lo, len(lanes), stages), -1, np.int32)
+    for k, ln in enumerate(lanes):
+        codes[:, k, :ln.stages] = codec.unpack_wire(
+            rec.wire_of(ln.at, range(lo, hi + 1)), ln.stages)
+    codes = torch.as_tensor(codes, device=device)
+    compared = torch.zeros((hi + 1 - lo, len(lanes)), dtype=torch.bool)
+    for k, ln in enumerate(lanes):
+        compared[np.asarray(ln.compared, np.int64) - lo, k] = True
+    compared = compared.to(device)
+    ds = dec.init_state([ln.slot for ln in lanes], seed)
+    peak = torch.zeros(len(lanes), dtype=torch.float64, device=device)
+    diff, where = torch.zeros_like(peak), torch.zeros_like(peak)
+    sq_err, sq_ref = torch.zeros_like(peak), torch.zeros_like(peak)
+    fade = {}
+    for t in range(lo, hi + 1):
+        if t not in rec.pcm:
+            continue
+        live = (first <= t) & (t <= last)
+        recv = torch.as_tensor(rec.received[t][at], device=device)
+        ref, new = dec.step(ds, codes[t - lo], recv)
+        ds = new if bool(live.all()) else codec._where_tree(live, new, ds)
+        ref = ref.double()
+        cmp = compared[t - lo]
+        got = torch.as_tensor(rec.pcm[t][at][:, :hop], device=device)
+        err = torch.where(cmp[:, None], got.double() - ref, 0.0)
+        ref = torch.where(cmp[:, None], ref, 0.0)
+        peak = torch.maximum(peak, ref.abs().amax(dim=1))
+        e = err.abs().amax(dim=1)
+        where = torch.where(e > diff, float(t), where)
+        diff = torch.maximum(diff, e)
+        sq_err += (err * err).sum(dim=1)
+        sq_ref += (ref * ref).sum(dim=1)
+        fade[t] = ds["fade"]
+    out = []
+    for k, ln in enumerate(lanes):
+        t = int(where[k])
+        out.append({"lane": ln, "compared": len(ln.compared), "at": t,
+                    "diff": float(diff[k]), "peak": float(peak[k]),
+                    "sq_err": float(sq_err[k]), "sq_ref": float(sq_ref[k]),
+                    "fade_before": int(fade[t - 1][k]) if t - 1 in fade
+                    else 0,
+                    "fade_after": int(fade[t][k]) if t in fade else 0,
+                    "received": bool(rec.received[t][ln.at])})
+    return out
 
 
 class _no_tf32_matmul:

@@ -9,6 +9,10 @@ sizes; the mix's loss channel drops packets of those on the host; and
 `DecoderServer.tick_wire_async` takes them and returns tick t − 2's PCM.
 Tick t + 1 starts as soon as tick t's calls return.
 
+A fleet's mix (portbench/fleet.py) drives a ServerPool pair the same way,
+and before each tick's submit ends and admits the streams its churn
+schedule names.
+
 Everything a cell needs is found by name (portbench/spec.py): the
 configuration's file, the mix's file, and one module per per-layer metric
 under portbench/metrics.  After the window every run profiles a stretch
@@ -32,10 +36,11 @@ import numpy as np
 import torch
 
 from portbench import compare, profiling, spec, work
-from portbench.traffic import Traffic
+from portbench.fleet import Fleet
+from portbench.traffic import CHURN_CYCLE, Traffic
 
 WARMUP_TICKS = 6  # set-up: each server program's warm-up and two captures
-PROFILED_TICKS = 20  # ticks in each profiler window of a traced run
+PROFILED_TICKS = CHURN_CYCLE  # ticks in each profiler window: one churn cycle
 SYNC_TICKS = 40  # synchronous tick pairs timed in a traced run
 HOP_S = 0.020
 HOST_THREADS = 2  # torch's host threads: the tick's host work is numpy
@@ -45,9 +50,9 @@ class _Loop:
     """The server pair, the traffic and what each tick left behind."""
 
     def __init__(self, enc, dec, traffic: Traffic, rec: compare.Record,
-                 cuda: bool):
+                 cuda: bool, fleet=None):
         self.enc, self.dec, self.traffic, self.rec = enc, dec, traffic, rec
-        self.cuda = cuda
+        self.cuda, self.fleet = cuda, fleet
         self.t = 0  # the next tick to submit
         self.enc_pending = self.dec_pending = None  # ticks in the pipelines
         self.submitted: Dict[int, float] = {}
@@ -71,9 +76,24 @@ class _Loop:
             self.done[prev] = time.perf_counter()
             self.rec.decoded(prev, pcm)
 
-    def tick(self) -> None:
+    def _begin(self, setup: bool = False) -> int:
+        """The next tick: a fleet's churn, then its PCM goes in."""
         t = self.t
         self.t += 1
+        if self.fleet is not None:
+            with torch.profiler.record_function("portbench.churn"):
+                self.fleet.churn(t, setup)
+        self.rec.submitted(t)
+        return t
+
+    def warm_up(self) -> None:
+        """Set-up's ticks: every program captured from both of its state
+        trees (a fleet's admission programs too: its extra churn)."""
+        for i in range(WARMUP_TICKS):
+            self.tick(setup=i == 2)
+
+    def tick(self, setup: bool = False) -> None:
+        t = self._begin(setup)
         self.submitted[t] = time.perf_counter()
         with torch.profiler.record_function("portbench.encode_tick"):
             out = self.enc.tick_wire_async(self.traffic.pcm(t))
@@ -100,8 +120,7 @@ class _Loop:
 
     def sync_tick(self) -> float:
         """One synchronous tick pair (the pipelines drained); → its wall s."""
-        t = self.t
-        self.t += 1
+        t = self._begin()
         _sync(self.cuda)
         t0 = time.perf_counter()
         wire, sizes = self.enc.tick_wire(self.traffic.pcm(t))
@@ -131,6 +150,24 @@ def _servers(cfg: dict, streams: int, bits: int, device, engine_kwargs):
     return enc, dec
 
 
+def _bad_packets(dec, fleet) -> int:
+    """Packets the decoder has counted bad so far: a fleet's ended
+    streams' counts too (an admission resets its slot's counter)."""
+    return int(dec.bad_packets.sum()) + (
+        fleet.ended_bad_packets if fleet is not None else 0)
+
+
+def _pair(cfg: dict, traffic: Traffic, device, engine_kwargs):
+    """The cell's encoder and decoder: one server pair, or for a fleet's
+    mix a ServerPool pair (portbench/fleet.py); → (enc, dec, the fleet or
+    None)."""
+    if traffic.layout is None:
+        return (*_servers(cfg, traffic.streams, traffic.bits, device,
+                          engine_kwargs), None)
+    fleet = Fleet(cfg, traffic, device, engine_kwargs)
+    return fleet.enc, fleet.dec, fleet
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool, *,
         root: str = ".", device=None, setup_start: Optional[float] = None,
         engine_kwargs: Optional[dict] = None,
@@ -154,15 +191,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     marks = [("process start to the run", time.perf_counter())]
     traffic = Traffic(mix, seed, rate, device)
     marks.append(("traffic", time.perf_counter()))
-    rows = compare.sample_rows(traffic.seed, traffic.streams,
-                               traffic.burst_rows)
-    rec = compare.Record(rows, -(-traffic.bits // 8))
-    enc, dec = _servers(cfg, traffic.streams, traffic.bits, device,
-                        engine_kwargs)
+    enc, dec, fleet = _pair(cfg, traffic, device, engine_kwargs)
+    if fleet is None:
+        rows = compare.sample_rows(traffic.seed, traffic.streams,
+                                   traffic.burst_rows)
+        rec = compare.Record(rows, -(-traffic.bits // 8))
+    else:
+        rows = compare.sample_fleet_rows(
+            traffic.seed, fleet.owner >= 0, fleet.layout.row_rates(),
+            fleet.bits, fleet.layout.row_waves(), traffic.burst_rows,
+            compare.CHECK_ROWS)
+        rec = compare.Record(rows, None, fleet)
     marks.append(("servers", time.perf_counter()))
-    loop = _Loop(enc, dec, traffic, rec, cuda)
-    for _ in range(WARMUP_TICKS):
-        loop.tick()
+    loop = _Loop(enc, dec, traffic, rec, cuda, fleet)
+    loop.warm_up()
     _sync(cuda)
     marks.append(("warm-up", time.perf_counter()))
     setup_s = time.perf_counter() - setup_start
@@ -174,8 +216,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     # collector off (a pause would land inside one tick's latency).
     gc.collect()
     gc.disable()
-    bad0 = int(dec.bad_packets.sum())
+    bad0 = _bad_packets(dec, fleet)
     first = loop.t
+    events0 = fleet.events if fleet is not None else 0
     w0 = time.perf_counter()
     while time.perf_counter() - w0 < seconds:
         loop.tick()
@@ -188,12 +231,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     per_s = np.bincount([int(d - w0) for d in loop.done.values()
                          if w0 <= d <= w1], minlength=int(seconds))
     attempted = traffic.streams * (loop.t - first)
-    failed = int(dec.bad_packets.sum()) - bad0
+    failed = _bad_packets(dec, fleet) - bad0
     failed += traffic.streams * sum(
         1 for t in range(first, loop.t) if t in loop.done
         and t not in rec.pcm)
     loop.flush()
     gc.enable()
+    churned = fleet.events - events0 if fleet is not None else 0
 
     reading, windows = profiling.recorded(
         lambda: loop.stretch(PROFILED_TICKS), cuda)
@@ -203,6 +247,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         walls = [loop.sync_tick() for _ in range(SYNC_TICKS)]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     kind = torch.cuda.get_device_name() if cuda else str(device)
+    if fleet is not None:
+        fleet.close()
     del enc, dec, loop
     gc.collect()
     if cuda:
@@ -211,9 +257,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     readings = compare.judge(rec, traffic, cfg["model_dir"], rate, device)
     ok, checks = compare.verdict(readings, cfg.get("limits", {}))
     notes = [f"set-up {setup_s:.2f} s: {setup_parts}",
-             f"compared {len(rows)} streams over {int(readings['_ticks'])} "
+             f"compared {int(readings['_streams'])} streams on {len(rows)} "
+             f"rows over {int(readings['_ticks'])} "
              f"ticks in {readings['_seconds']:.1f} s; the largest PCM gap: "
              f"{readings['_worst']}"]
+    if fleet is not None:
+        notes.append(f"churn events in the window {churned}, in the run "
+                     f"{fleet.events}; {fleet.summary()}")
 
     metrics: Dict[str, dict] = {}
     device_info = {"platform": "gpu" if cuda else device.type, "kind": kind,
@@ -245,8 +295,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
                "bits": traffic.bits, "window": window,
                "hop_latency_ms": latency_ms,
                "profile": reading, "profiled_ticks": PROFILED_TICKS,
-               "sync_wall_s": walls, "work": work.Work(cfg, traffic.streams,
-                                                      traffic.bits)}
+               "sync_wall_s": walls, "work": work.Work(
+                   cfg, traffic.streams, traffic.bits if fleet is None
+                   else fleet.admitted_bits())}
         for m in cell.per_layer:
             mod = importlib.import_module(f"portbench.metrics.{m['name']}")
             value = mod.read(ctx)

@@ -19,7 +19,7 @@ server's seed.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -64,37 +64,47 @@ class Encoder:
             state["resampler"] = self.resampler.init_state(rows)
         return state
 
-    def features(self, pcm, ticks: int, rows: int, warm: int = 32,
-                 chunk: int = 256) -> torch.Tensor:
-        """[ticks, rows, 64] features of ticks 0..ticks−1, where `pcm(t)` is
-        tick t's [rows, hop] PCM.  SoundStream and the resampler hold only
-        a finite history of their inputs (their state is input rows, no
-        feedback), so a run that starts from the initial state `warm` ticks
-        before a tick gives that tick's features as the run from tick 0
-        does.  The ticks are cut into chunks run side by side as rows of one
-        batch, each from `warm` ticks before its start (the first from tick
-        0 itself): a few hundred steps instead of one per tick."""
-        starts = list(range(0, ticks, chunk))
-        k = len(starts)
-        state = self.init_state(k * rows)
-        first = torch.zeros(k * rows, dtype=torch.bool, device=self.device)
-        first[:rows] = True
-        out = torch.empty((ticks, rows, self.model.sg.tensors[
+    def features(self, pcm, spans, warm: int = 32,
+                 chunk: int = 256) -> List[torch.Tensor]:
+        """[stop − start, 64] features of each lane's ticks, where lane l
+        runs from the initial state at tick start_l (`spans` [(start_l,
+        stop_l)]) and `pcm(ticks, lanes)` is [K, hop] int16: lane lanes[k]'s
+        PCM at tick ticks[k] (numpy).  SoundStream and the resampler hold
+        only a finite history of their inputs (their state is input rows,
+        no feedback), so a run that starts from the initial state `warm`
+        ticks before a tick gives that tick's features as the run from the
+        lane's start does.  Each lane's ticks are cut into chunks run side
+        by side as rows of one batch, each from `warm` ticks before its
+        start (a lane's first from its start itself): a few hundred steps
+        instead of one per tick."""
+        parts = []  # (lane, chunk start, first tick fed), chunk-major
+        for c in range(max(-(-(b - a) // chunk) for a, b in spans)):
+            parts += [(ln, a + c * chunk, a if c == 0 else a + c * chunk - warm)
+                      for ln, (a, b) in enumerate(spans) if a + c * chunk < b]
+        lane = np.array([p[0] for p in parts])
+        s0 = np.array([p[1] for p in parts])
+        begin = np.array([p[2] for p in parts])
+        stop = np.array([spans[ln][1] for ln in lane])
+        k = len(parts)
+        hop = pcm(s0[:1], lane[:1]).shape[1]
+        state = self.init_state(k)
+        out = torch.empty((k, chunk, self.model.sg.tensors[
             self.model._out].shape[-1]), device=self.device)
-        hop = pcm(0).shape[1]
         for j in range(-warm, chunk):
-            x = torch.zeros((k * rows, hop), dtype=torch.int16,
-                            device=self.device)
-            for c, s0 in enumerate(starts):
-                if 0 <= s0 + j < ticks and (c or j >= 0):
-                    x[c * rows:(c + 1) * rows] = pcm(s0 + j)
-            feats, new = self.step(state, x)
-            # The first chunk starts at tick 0: no steps before it.
-            state = _where_tree(~first, new, state) if j < 0 else new
-            for c, s0 in enumerate(starts):
-                if 0 <= j and s0 + j < ticks:
-                    out[s0 + j] = feats[c * rows:(c + 1) * rows]
-        return out
+            t = s0 + j
+            fed = (begin <= t) & (t < stop)
+            x = np.zeros((k, hop), np.int16)
+            if fed.any():
+                x[fed] = pcm(t[fed], lane[fed])
+            feats, new = self.step(state, torch.as_tensor(x, device=self.device))
+            # A chunk that starts at its lane's start has no steps before.
+            state = _where_tree(torch.as_tensor(
+                begin <= t, device=self.device), new, state) if j < 0 else new
+            if j >= 0:
+                out[:, j] = feats
+        return [torch.cat([out[i, :min(chunk, spans[ln][1] - s0[i])]
+                           for i in np.flatnonzero(lane == ln)])
+                for ln in range(len(spans))]
 
     def step(self, state: Dict, pcm: torch.Tensor):
         new = dict(state)
@@ -144,9 +154,11 @@ class Decoder:
         return state
 
     def features(self, codes: torch.Tensor) -> torch.Tensor:
-        """[R, n] codes → [R, 64]: the sum of each stage's codeword."""
+        """[R, n] codes → [R, 64]: the sum of each stage's codeword; a code
+        of −1 (a stage past the row's bitrate) adds nothing."""
         stages = torch.arange(codes.shape[1], device=codes.device)[None, :]
-        return self.codebooks[stages, codes.long()].sum(dim=1)
+        words = self.codebooks[stages, codes.long().clamp_min(0)]
+        return torch.where((codes >= 0)[..., None], words, 0.0).sum(dim=1)
 
     def step(self, state: Dict, codes: torch.Tensor, received: torch.Tensor):
         received = received.bool()

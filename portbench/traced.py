@@ -4,10 +4,10 @@ profiler, read by marker segment, by program span and by counter.
 
 The harness frees its servers before it reads the per-layer metrics, so
 the first metric that reads this stretch builds the cell's server pair
-anew (`harness._servers`, the same programs at the same sizes), admits
-every stream, and warms it twice: tracing off, then on (each mode's graphs
-captured; utils/capture.py keys its graphs on the tracer's switch).  Then,
-on those servers:
+anew (`harness._pair`, the same programs at the same sizes, a fleet's
+churn too), admits every stream, and warms it twice: tracing off, then on
+(each mode's graphs captured; utils/capture.py keys its graphs on the
+tracer's switch).  Then, on those servers:
 
   1. the tracer's host cost: `harness.PROFILED_TICKS` ticks and a flush
      timed on the host clock, tracing off and on in turn, ROUNDS times;
@@ -91,16 +91,15 @@ def _measure(ctx) -> Optional[dict]:
     device = torch.device("cuda" if cuda else "cpu")
     cfg, ticks = ctx["config"], ctx["profiled_ticks"]
     traffic = Traffic(ctx["mix"], SEED, int(cfg["sample_rate_hz"]), device)
-    rec = compare.Record(np.zeros(0, np.int64), -(-traffic.bits // 8))
-    enc, dec = harness._servers(cfg, traffic.streams, traffic.bits, device,
-                                None)
-    loop = harness._Loop(enc, dec, traffic, rec, cuda)
+    enc, dec, fleet = harness._pair(cfg, traffic, device, None)
+    rec = compare.Record(np.zeros(0, np.int64), None if fleet else
+                         -(-traffic.bits // 8), fleet)
+    loop = harness._Loop(enc, dec, traffic, rec, cuda, fleet)
     try:
         walls = {False: [], True: []}
         for traced in (False, True):
             (trace.enable if traced else trace.disable)()
-            for _ in range(harness.WARMUP_TICKS):
-                loop.tick()
+            loop.warm_up()
             loop.flush()
         trace.drain()
         for _ in range(ROUNDS):
@@ -128,6 +127,8 @@ def _measure(ctx) -> Optional[dict]:
         trace.disable()
         trace.drain()
         del loop, enc, dec
+        if fleet is not None:
+            fleet.close()
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()

@@ -109,11 +109,15 @@ def op_work(sg: tfl.SubGraphDef, op, batch: int,
 class Work:
     """The cell's work per tick at its batch and dtype."""
 
-    def __init__(self, config: dict, streams: int, bits: int):
+    def __init__(self, config: dict, streams: int, bits):
+        """`streams` admitted rows, each sending packets of `bits` quantized
+        bits: one count for every row, or each row's own ([streams])."""
         self.dtype = "bfloat16" if config["mode"] == "bf16" else "float32"
         self.elem = 2 if self.dtype == "bfloat16" else 4
         self.peak = PEAK_FLOPS[self.dtype]
-        self.streams, self.stages = streams, bits // 4
+        self.streams = streams
+        self.stages = np.broadcast_to(np.asarray(bits, np.int64) // 4,
+                                      (streams,))
         self.graphs = {m: _graph(os.path.join(config["model_dir"],
                                               m + ".tflite")) for m in MODELS}
 
@@ -133,13 +137,14 @@ class Work:
         return total
 
     def rvq(self) -> Tuple[float, float]:
-        """(operations, bytes) of one RVQ search over the stages the mix's
+        """(operations, bytes) of one RVQ search over the stages each row's
         packets carry: per stage 16 dot products of 64 and the residual
-        update; features, codebooks and ‖c‖² read once, codes written
-        once, float32."""
-        b, s = self.streams, self.stages
-        flop = b * s * (CODES * 2 * FEATURES + FEATURES)
-        nbytes = 4 * (b * FEATURES + s * CODES * (FEATURES + 1) + b * s)
+        update; features, the codebooks of the most stages and their ‖c‖²
+        read once, codes written once, float32."""
+        b, total = self.streams, int(self.stages.sum())
+        flop = total * (CODES * 2 * FEATURES + FEATURES)
+        nbytes = 4 * (b * FEATURES + int(self.stages.max()) * CODES
+                      * (FEATURES + 1) + total)
         return float(flop), float(nbytes)
 
     def tick_flop(self) -> float:
