@@ -1,21 +1,23 @@
 """The comparison that decides `correct`.
 
 What the timed path produced for a sample of streams, every tick of the
-run, is judged by the plain float32 reference (portbench/reference), with
+run, is judged by the configuration's plain float32 reference (the module
+its `reference` names; Lyra v2's is portbench/reference/codec.py), with
 TF32 off, after the program's state is freed:
 
-  code_gap   encoder side.  The reference runs SoundStream over each
-             sampled stream's PCM (resampled to 16 kHz where the stream's
-             rate differs); every RVQ code the program put on the wire is
-             scored against the reference's best codeword, following the
-             program's codes (reference.codec.code_gaps): the largest share
-             of the features' norm by which a code lies off the best.  A
-             code that differs at a near-tie reads a share at rounding
-             level; a wrong code reads far more.
+  code_gap   encoder side.  The reference's encoder runs over each
+             sampled stream's PCM (Lyra's: SoundStream, on the PCM
+             resampled to 16 kHz where the stream's rate differs); every
+             code the program put on the wire is scored against the
+             reference's best codeword, following the program's codes
+             (`code_gaps`): the largest share of the features' norm by
+             which a code lies off the best.  A code that differs at a
+             near-tie reads a share at rounding level; a wrong code reads
+             far more.
   pcm_err    decoder side.  The reference decodes the codes the program's
              decoder received (the wire after the loss channel), with the
-             same losses, through LyraGAN, PLC, comfort noise, the
-             crossfade and the resampler; the largest |program − reference|
+             same losses (Lyra's: through LyraGAN, PLC, comfort noise, the
+             crossfade and the resampler); the largest |program − reference|
              of a stream's PCM, as a share of that stream's peak |reference|.
              No configuration limits it (it has no upper reading: see
              pcm_rms_err); the run's notes show where it lay.
@@ -46,11 +48,31 @@ before the drain.  The quartile of pcm_rms_err is over tenures.
 
 A number is compared where the configuration's file gives it a limit
 (`limits`); the readings each limit was set from are in PERF.md.
+
+The reference module gives, for one codec (all tensors on `device`):
+  Encoder(model_dir, rate, device)
+      .features(pcm, spans) → [[stop − start, F] per lane]: the features
+      of lane l's ticks start_l ≤ t < stop_l (spans [(start_l, stop_l)])
+      from a fresh state at start_l, where pcm(ticks, lanes) is the [K,
+      hop] int16 numpy PCM of lane lanes[k] at tick ticks[k];
+  Decoder(model_dir, rate, device)
+      .codebooks: what `code_gaps` takes as its third argument;
+      .init_state(slots, seed) → the state of streams in those server
+      slots (a dict of tensors, nested dicts allowed, a row a stream; a
+      `fade` entry, where there is one, is shown in the notes);
+      .step(state, codes [R, S] int32 (−1 past a stream's stages),
+      received [R] bool) → (pcm [R, hop] float, state);
+  unpack_wire(wire [R, bytes] uint8, stages) → [R, stages] int32 codes;
+  code_gaps(features [N, F], codes [N, S], codebooks) → [N, S]: how far
+      each code lies from the best, as a share of the features' norm;
+  stages_of(bits) → the stages a packet of `bits` quantized bits
+      carries (an int, or an integer array elementwise).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 import time
 from typing import Dict, List, Optional
@@ -58,7 +80,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench.reference import codec
+from portbench.traffic import hop_samples
 
 NUMBERS = ("code_gap", "pcm_err", "pcm_rms_err", "bad_sizes", "lost_ticks")
 CHECK_ROWS = 32  # sampled streams, half of them on the bursty rows
@@ -183,13 +205,14 @@ class Record:
             out[i, :r.size] = r
         return out
 
-    def lanes(self, rate: int) -> List["Lane"]:
+    def lanes(self, rate: int, stages_of) -> List["Lane"]:
         """The streams the reference follows: each sampled row over the
         whole run at `rate` and the mix's packet size, or in a fleet each
-        tenure that a sampled row held."""
+        tenure that a sampled row held; `stages_of` (the reference's) gives
+        the stages of a packet's bits."""
         ticks = self.ticks()
         if self.fleet is None:
-            stages = self.packet_bytes * 8 // 4
+            stages = stages_of(self.packet_bytes * 8)
             return [Lane(i, int(r), int(r), rate, stages, 0, ticks, ticks,
                          ticks) for i, r in enumerate(self.rows)]
         enc = np.stack([self.enc_owner[t] for t in ticks])
@@ -207,8 +230,8 @@ class Record:
                     (dec[:, i] == tid) & ok[:, i])]
                 coded = [ticks[j] for j in np.flatnonzero(enc[:, i] == tid)]
                 out.append(Lane(i, int(row), int(row) % cap, ten.rate,
-                                ten.bits // 4, ten.admitted, coded, stepped,
-                                compared))
+                                stages_of(ten.bits), ten.admitted, coded,
+                                stepped, compared))
         return out
 
 
@@ -232,17 +255,20 @@ class Lane:
     compared: List[int]
 
 
-def judge(rec: Record, traffic, model_dir: str, sample_rate_hz: int,
-          device, seed: int = 0) -> Dict[str, float]:
-    """The reference over every recorded tick of the sampled rows' streams
-    (`Record.lanes`), one rate at a time; → {number: reading}, and under
-    "_worst" where the largest PCM gap lay.  `seed` is the decoder
-    servers' (its comfort-noise RNG lineage)."""
+def judge(rec: Record, traffic, cfg: dict, device,
+          seed: int = 0) -> Dict[str, float]:
+    """The configuration's reference (`cfg["reference"]`, its model
+    files in `cfg["model_dir"]`) over every recorded tick of the sampled
+    rows' streams (`Record.lanes`), one rate at a time; → {number:
+    reading}, and under "_worst" where the largest PCM gap lay.  `seed`
+    is the decoder servers' (its comfort-noise RNG lineage)."""
     t0 = time.perf_counter()
     ticks = rec.ticks()
     if ticks != list(range(len(ticks))):
         raise ValueError("the record does not start at tick 0 or has gaps")
-    lanes = rec.lanes(sample_rate_hz)
+    ref = importlib.import_module(cfg["reference"])
+    model_dir = cfg["model_dir"]
+    lanes = rec.lanes(int(cfg["sample_rate_hz"]), ref.stages_of)
     gaps: Dict[int, List[tuple]] = {}
     acc = []
     with torch.backends.cudnn.flags(enabled=True, deterministic=True,
@@ -250,28 +276,29 @@ def judge(rec: Record, traffic, model_dir: str, sample_rate_hz: int,
             torch.inference_mode():
         for rate in sorted({ln.rate for ln in lanes}):
             group = [ln for ln in lanes if ln.rate == rate]
-            enc = codec.Encoder(model_dir, rate, device)
-            dec = codec.Decoder(model_dir, rate, device)
+            enc = ref.Encoder(model_dir, rate, device)
+            dec = ref.Decoder(model_dir, rate, device)
             coded = [ln for ln in group if ln.coded]
-            hop = rate // 50
+            hop = hop_samples(rate, traffic.hop_ms)
             rows = np.array([rec.rows[ln.at] for ln in coded])
             feats = enc.features(
                 lambda t, k: traffic.pcm_at(t, rows[k])[:, :hop],
                 [(ln.admitted, ln.coded[-1] + 1) for ln in coded])
             for ln, f in zip(coded, feats):
-                codes = codec.unpack_wire(rec.wire_of(ln.at, ln.coded),
-                                          ln.stages)
+                codes = ref.unpack_wire(rec.wire_of(ln.at, ln.coded),
+                                        ln.stages)
                 gaps.setdefault(ln.stages, []).append(
                     (f[np.asarray(ln.coded) - ln.admitted],
                      torch.as_tensor(codes, device=device)))
-            acc += _decode(rec, dec, [ln for ln in group if ln.stepped],
-                           hop, seed, device)
+            acc += _decode(rec, ref, dec,
+                           [ln for ln in group if ln.stepped], hop, seed,
+                           device)
         gap = 0.0
         for stages, parts in gaps.items():
             f = torch.cat([p[0] for p in parts])
             c = torch.cat([p[1] for p in parts])
             for i in range(0, f.shape[0], GAP_ROWS):
-                gap = max(gap, float(codec.code_gaps(
+                gap = max(gap, float(ref.code_gaps(
                     f[i:i + GAP_ROWS], c[i:i + GAP_ROWS],
                     dec.codebooks).max()))
     lanes = [a for a in acc if a["compared"]]
@@ -303,7 +330,14 @@ def judge(rec: Record, traffic, model_dir: str, sample_rate_hz: int,
                            (rms > 10 * rms.median()).sum())}}
 
 
-def _decode(rec: Record, dec, lanes: List[Lane], hop: int, seed: int,
+def _where_tree(mask, new, old):
+    """`new` where `mask` (a row a stream), else `old`, leaf by leaf."""
+    if isinstance(new, dict):
+        return {k: _where_tree(mask, v, old[k]) for k, v in new.items()}
+    return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def _decode(rec: Record, ref, dec, lanes: List[Lane], hop: int, seed: int,
             device) -> List[dict]:
     """The reference decoder over `lanes` side by side, each from a fresh
     state at its first stepped tick, fed the codes and losses the
@@ -318,7 +352,7 @@ def _decode(rec: Record, dec, lanes: List[Lane], hop: int, seed: int,
     # Each lane's codes at each tick, −1 past its own stages.
     codes = np.full((hi + 1 - lo, len(lanes), stages), -1, np.int32)
     for k, ln in enumerate(lanes):
-        codes[:, k, :ln.stages] = codec.unpack_wire(
+        codes[:, k, :ln.stages] = ref.unpack_wire(
             rec.wire_of(ln.at, range(lo, hi + 1)), ln.stages)
     codes = torch.as_tensor(codes, device=device)
     compared = torch.zeros((hi + 1 - lo, len(lanes)), dtype=torch.bool)
@@ -336,7 +370,7 @@ def _decode(rec: Record, dec, lanes: List[Lane], hop: int, seed: int,
         live = (first <= t) & (t <= last)
         recv = torch.as_tensor(rec.received[t][at], device=device)
         ref, new = dec.step(ds, codes[t - lo], recv)
-        ds = new if bool(live.all()) else codec._where_tree(live, new, ds)
+        ds = new if bool(live.all()) else _where_tree(live, new, ds)
         ref = ref.double()
         cmp = compared[t - lo]
         got = torch.as_tensor(rec.pcm[t][at][:, :hop], device=device)
@@ -348,7 +382,8 @@ def _decode(rec: Record, dec, lanes: List[Lane], hop: int, seed: int,
         diff = torch.maximum(diff, e)
         sq_err += (err * err).sum(dim=1)
         sq_ref += (ref * ref).sum(dim=1)
-        fade[t] = ds["fade"]
+        if "fade" in ds:
+            fade[t] = ds["fade"]
     out = []
     for k, ln in enumerate(lanes):
         t = int(where[k])

@@ -2,15 +2,15 @@
 by a pair of lyra_tpu_torch ServerPools (tools/stream_server.py), as a
 host serving a mixed fleet runs them.
 
-One engine pair per rate, in the configuration's mode on its backend; one
-EncoderServer and one DecoderServer per wave, each wave's on its rate's
-engines; the waves in the mix's layout order, so a pool row is a slot of
-one wave.  At set-up every rate's streams are admitted on both pools at
-once (balanced over the rate's waves), each at the bitrate the traffic
-draws for it.  At a churn event the harness ends a stream on both pools
-(`remove_stream`) and admits its replacement at once (`add_stream`, the
-admission's `reset_rows` replay on each side), before the tick's PCM is
-submitted.
+One engine pair per rate (the configuration's `engines`), in its mode on
+its backend; one EncoderServer and one DecoderServer per wave, each
+wave's on its rate's engines; the waves in the mix's layout order, so a
+pool row is a slot of one wave.  At set-up every rate's streams are
+admitted on both pools at once (balanced over the rate's waves), each at
+the bitrate the traffic draws for it.  At a churn event the harness ends
+a stream on both pools (`remove_stream`) and admits its replacement at
+once (`add_stream`, the admission's `reset_rows` replay on each side),
+before the tick's PCM is submitted.
 
 The fleet keeps the harness's own record of who holds each row: `owner`
 (the tenure, one per admission, whose id is its stream id; −1 where the
@@ -28,9 +28,8 @@ from typing import List
 
 import numpy as np
 
-from portbench.traffic import Traffic, bits_of
-
-DEFAULT_BITRATE = 6000  # an EncoderServer's bitrate for a row admitted bare
+from portbench import spec
+from portbench.traffic import Traffic, bitrate_of, bits_of
 
 
 @dataclasses.dataclass
@@ -43,21 +42,21 @@ class Tenure:
 
 class Fleet:
     def __init__(self, cfg: dict, traffic: Traffic, device, engine_kwargs):
-        from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
         from lyra_tpu_torch.tools.stream_server import (
             DecoderServer, EncoderServer, ServerPool)
 
         self.traffic, self.layout = traffic, traffic.layout
         lay = self.layout
-        path = cfg["model_dir"]
-        kw = {"mode": cfg["mode"], **(engine_kwargs or {})}
         rates = sorted(set(lay.wave_rates))
-        encs = {r: EncoderEngine(r, path, device=device, **kw) for r in rates}
-        decs = {r: DecoderEngine(r, path, emit_dtype="int16", device=device,
-                                 **kw) for r in rates}
+        encs = {r: spec.engine(cfg, "encoder", r, device, engine_kwargs)
+                for r in rates}
+        decs = {r: spec.engine(cfg, "decoder", r, device, engine_kwargs)
+                for r in rates}
+        # A row admitted bare sends the mix's most common bitrate.
+        bare = int(traffic.bitrates[np.argmax(traffic.bitrate_shares)])
         self.enc = ServerPool([
-            EncoderServer(lay.capacity, engine=encs[r],
-                          bitrate=DEFAULT_BITRATE) for r in lay.wave_rates])
+            EncoderServer(lay.capacity, engine=encs[r], bitrate=bare)
+            for r in lay.wave_rates])
         self.dec = ServerPool([DecoderServer(lay.capacity, engine=decs[r])
                                for r in lay.wave_rates])
         n = lay.slots
@@ -74,15 +73,16 @@ class Fleet:
             if self.dec.add_streams(ids, sample_rate_hz=rate) != rows:
                 raise RuntimeError("the pools placed a stream apart")
             for sid, bitrate in zip(ids, bitrates):
-                if bitrate != DEFAULT_BITRATE:
+                if bitrate != bare:
                     self.enc.set_bitrate(sid, int(bitrate))
                 self._admitted(sid, rows[sid], rate, int(bitrate), 0)
 
     def _admitted(self, sid, row, rate, bitrate, t) -> None:
-        self.tenures.append(Tenure(row, rate, bits_of(bitrate), t))
+        bits = bits_of(bitrate, self.traffic.hop_ms)
+        self.tenures.append(Tenure(row, rate, bits, t))
         self.owner[row] = sid
         self.gen[row] += 1
-        self.bits[row] = bits_of(bitrate)
+        self.bits[row] = bits
 
     def churn(self, t: int, setup: bool = False) -> None:
         """Tick t's churn events; with `setup`, two more on every wave (the
@@ -122,7 +122,8 @@ class Fleet:
         on = self.owner >= 0
         rates = self.layout.row_rates()[on]
         by_rate = {int(r): int((rates == r).sum()) for r in np.unique(rates)}
-        by_bits = {int(b) * 50: int((self.bits[on] == b).sum())
+        by_bits = {bitrate_of(b, self.traffic.hop_ms):
+                   int((self.bits[on] == b).sum())
                    for b in np.unique(self.bits[on])}
         return (f"admitted rows {int(on.sum())} of {on.size}: by rate (Hz) "
                 f"{by_rate}, by bitrate (bit/s) {by_bits}")

@@ -15,10 +15,13 @@ schedule names.
 
 Everything a cell needs is found by name (portbench/spec.py): the
 configuration's file, the mix's file, and one module per per-layer metric
-under portbench/metrics.  After the window every run profiles a stretch
-of the same async ticks, from empty pipelines to drained ones
-(portbench/profiling.py): the card's own time per tick, which
-`card_streams` reads.  A `--trace 1` run measures the same window
+under portbench/metrics.  The configuration names the codec's pieces:
+its hop (`hop_ms`), the port's engine classes the servers run
+(`engines`), the plain reference the comparison runs (`reference`) and
+the class that counts a tick's work (`work`).  After the window every
+run profiles a stretch of the same async ticks, from empty pipelines to
+drained ones (portbench/profiling.py): the card's own time per tick,
+which `card_streams` reads.  A `--trace 1` run measures the same window
 (served_streams and tick_mfu_pct read it), reads its per-layer metrics
 from that profile and times a stretch of synchronous tick pairs; every
 tick of the run, set-up's too, goes to the comparison
@@ -35,14 +38,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from portbench import compare, profiling, spec, work
+from portbench import compare, profiling, spec
 from portbench.fleet import Fleet
-from portbench.traffic import CHURN_CYCLE, Traffic
+from portbench.traffic import CHURN_CYCLE, Traffic, bitrate_of
 
-WARMUP_TICKS = 6  # set-up: each server program's warm-up and two captures
 PROFILED_TICKS = CHURN_CYCLE  # ticks in each profiler window: one churn cycle
 SYNC_TICKS = 40  # synchronous tick pairs timed in a traced run
-HOP_S = 0.020
 HOST_THREADS = 2  # torch's host threads: the tick's host work is numpy
 
 
@@ -87,9 +88,10 @@ class _Loop:
         return t
 
     def warm_up(self) -> None:
-        """Set-up's ticks: every program captured from both of its state
-        trees (a fleet's admission programs too: its extra churn)."""
-        for i in range(WARMUP_TICKS):
+        """Set-up's ticks (the mix's `setup_ticks`): every program captured
+        from both of its state trees (a fleet's admission programs too:
+        its extra churn)."""
+        for i in range(self.traffic.setup_ticks):
             self.tick(setup=i == 2)
 
     def tick(self, setup: bool = False) -> None:
@@ -135,16 +137,22 @@ def _sync(cuda: bool) -> None:
         torch.cuda.synchronize()
 
 
+def streams_carried(streams: int, ticks: int, hop_s: float,
+                    seconds: float) -> float:
+    """Streams whose audio `ticks` ticks of `streams` streams carry in
+    `seconds`: each tick is one hop of `hop_s` seconds of every stream."""
+    return streams * ticks * hop_s / seconds
+
+
 def _servers(cfg: dict, streams: int, bits: int, device, engine_kwargs):
-    from lyra_tpu_torch.codec.engine import DecoderEngine, EncoderEngine
     from lyra_tpu_torch.tools.stream_server import DecoderServer, EncoderServer
 
-    path, rate = cfg["model_dir"], int(cfg["sample_rate_hz"])
-    kw = {"mode": cfg["mode"], **(engine_kwargs or {})}
-    enc = EncoderServer(streams, engine=EncoderEngine(
-        rate, path, device=device, **kw), bitrate=bits * 50)
-    dec = DecoderServer(streams, engine=DecoderEngine(
-        rate, path, emit_dtype="int16", device=device, **kw))
+    rate = int(cfg["sample_rate_hz"])
+    enc = EncoderServer(streams, engine=spec.engine(
+        cfg, "encoder", rate, device, engine_kwargs),
+        bitrate=bitrate_of(bits, cfg["hop_ms"]))
+    dec = DecoderServer(streams, engine=spec.engine(
+        cfg, "decoder", rate, device, engine_kwargs))
     for server in (enc, dec):
         server.add_streams(range(streams))
     return enc, dec
@@ -189,7 +197,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.reset_peak_memory_stats()
     rate = int(cfg["sample_rate_hz"])
     marks = [("process start to the run", time.perf_counter())]
-    traffic = Traffic(mix, seed, rate, device)
+    traffic = Traffic(mix, seed, rate, cfg["hop_ms"], device)
     marks.append(("traffic", time.perf_counter()))
     enc, dec, fleet = _pair(cfg, traffic, device, engine_kwargs)
     if fleet is None:
@@ -243,7 +251,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         lambda: loop.stretch(PROFILED_TICKS), cuda)
     if trace:
         window = {"ticks": completed, "window_s": window_s,
-                  "streams": traffic.streams}
+                  "streams": traffic.streams, "hop_s": traffic.hop_s}
         walls = [loop.sync_tick() for _ in range(SYNC_TICKS)]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     kind = torch.cuda.get_device_name() if cuda else str(device)
@@ -254,7 +262,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     if cuda:
         torch.cuda.empty_cache()
 
-    readings = compare.judge(rec, traffic, cfg["model_dir"], rate, device)
+    readings = compare.judge(rec, traffic, cfg, device)
     ok, checks = compare.verdict(readings, cfg.get("limits", {}))
     notes = [f"set-up {setup_s:.2f} s: {setup_parts}",
              f"compared {int(readings['_streams'])} streams on {len(rows)} "
@@ -273,11 +281,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     busy_s = reading["busy_s"]
     if not trace:
         values = {
-            "realtime_streams": traffic.streams * completed * HOP_S / window_s,
+            "realtime_streams": streams_carried(
+                traffic.streams, completed, traffic.hop_s, window_s),
             # Streams whose hops the card's own time per tick carries: the
             # device's busy time (kernels and copies, their union on the
             # profiler's timeline) over whole ticks, whatever the host does.
-            "card_streams": traffic.streams * PROFILED_TICKS * HOP_S / busy_s
+            "card_streams": streams_carried(
+                traffic.streams, PROFILED_TICKS, traffic.hop_s, busy_s)
             if busy_s > 0 else None,
             "setup_s": setup_s,
         }
@@ -295,7 +305,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
                "bits": traffic.bits, "window": window,
                "hop_latency_ms": latency_ms,
                "profile": reading, "profiled_ticks": PROFILED_TICKS,
-               "sync_wall_s": walls, "work": work.Work(
+               "sync_wall_s": walls, "work": spec.named(cfg["work"])(
                    cfg, traffic.streams, traffic.bits if fleet is None
                    else fleet.admitted_bits())}
         for m in cell.per_layer:

@@ -13,7 +13,8 @@ engine's default estimator), LyraGAN, the six-state PLC machine, the
 decoder's noise estimator, comfort noise and the cos² crossfade, then the
 resampler to the stream's rate.  `rows` are the streams' slot numbers in
 the server: the comfort-noise RNG counter starts from them and the
-server's seed.
+server's seed.  The Lyra configurations name this module as their
+`reference` (the interface is in portbench/compare.py's docstring).
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ def _where_tree(mask, new, old):
     if isinstance(new, dict):
         return {k: _where_tree(mask, v, old[k]) for k, v in new.items()}
     return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def stages_of(bits):
+    """RVQ stages a packet of `bits` quantized bits carries: 4 bits a
+    stage (an int, or an integer array elementwise)."""
+    return bits // 4
 
 
 def unpack_wire(wire: np.ndarray, stages: int) -> np.ndarray:

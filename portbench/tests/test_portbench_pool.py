@@ -70,7 +70,7 @@ def test_shares_by_largest_remainder(total, weights, expected):
 
 def _traffic(seed, **mix):
     m = {**MIX, "pool_ticks": 1, **mix}
-    return traffic.Traffic(m, seed, 48000, "cpu")
+    return traffic.Traffic(m, seed, 48000, 20, "cpu")
 
 
 def test_every_stretch_of_a_cycle_churns_each_wave_alike():
@@ -109,7 +109,8 @@ def test_pool_pcm_holds_each_rows_own_hop_left_aligned():
         pcm = tr.pcm(1)[row]
         assert np.all(pcm[hops[row]:] == 0) and np.any(pcm[:hops[row]])
     assert tr.received(5).shape == (4608,)
-    assert traffic.bits_of(3200) == 64 and traffic.bits_of(9200) == 184
+    assert traffic.bits_of(3200, 20) == 64
+    assert traffic.bits_of(9200, 20) == 184
 
 
 def test_the_sample_covers_every_rate_and_bitrate():
@@ -126,7 +127,8 @@ def test_the_sample_covers_every_rate_and_bitrate():
             admitted[w * lay.capacity:w * lay.capacity + n] = True
         for rate in lay.streams:
             rows = np.flatnonzero(admitted & (rates == rate))
-            bits[rows] = [traffic.bits_of(b) for b in tr.setup_bitrates(rate)]
+            bits[rows] = [traffic.bits_of(b, 20)
+                          for b in tr.setup_bitrates(rate)]
         rows = compare.sample_fleet_rows(tr.seed, admitted, rates, bits,
                                          waves, tr.burst_rows, 32)
         assert rows.size == 32 and admitted[rows].all()

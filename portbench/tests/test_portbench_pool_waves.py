@@ -95,7 +95,8 @@ class _Pool:
 def test_an_ended_streams_bad_packets_still_count():
     f = fleet.Fleet.__new__(fleet.Fleet)
     f.layout = traffic.Layout((8000, 48000), 2, {8000: 2, 48000: 2})
-    f.traffic = type("T", (), {"churn": lambda self, t: [(1, 0.0, 6000)]})()
+    f.traffic = type("T", (), {"churn": lambda self, t: [(1, 0.0, 6000)],
+                               "hop_ms": 20})()
     f.enc, f.dec = _Pool(), _Pool()
     f.owner, f.gen = np.arange(4), np.ones(4, np.int64)
     f.bits = np.full(4, 120)

@@ -90,7 +90,8 @@ def _measure(ctx) -> Optional[dict]:
     cuda = torch.cuda.is_initialized()
     device = torch.device("cuda" if cuda else "cpu")
     cfg, ticks = ctx["config"], ctx["profiled_ticks"]
-    traffic = Traffic(ctx["mix"], SEED, int(cfg["sample_rate_hz"]), device)
+    traffic = Traffic(ctx["mix"], SEED, int(cfg["sample_rate_hz"]),
+                      cfg["hop_ms"], device)
     enc, dec, fleet = harness._pair(cfg, traffic, device, None)
     rec = compare.Record(np.zeros(0, np.int64), None if fleet else
                          -(-traffic.bits // 8), fleet)

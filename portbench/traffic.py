@@ -2,11 +2,19 @@
 stream sends, the packets the network loses and, for a fleet, who comes
 and goes, all from `--seed`.
 
+A tick is one hop of every stream: the configuration's `hop_ms` of
+audio, so a row's PCM is rate × hop samples and a packet carries bitrate
+× hop bits.
+
 A mix (portbench/traffic/<name>.json) gives (and may say in `source`
 where its numbers come from, and which are assumed; it is not read):
   streams            B, the streams admitted at set-up;
-  bits_per_packet    the encoder's rate for every stream (120 = 6 kbps);
+  bits_per_packet    the encoder's rate for every stream (120 at a 20 ms
+                     hop = 6 kbps);
   pool_ticks         ticks of PCM generated at set-up, cycled in order;
+  setup_ticks        (optional, at least SETUP_TICKS, which is the
+                     default) ticks of set-up before the window: a codec
+                     with a long history fills it here;
   talk_share,        each (tick, stream) hop is Gaussian noise at talk_rms
   talk_rms,          with probability talk_share, else at quiet_rms (int16
   quiet_rms          scale), so the noise estimators see both levels;
@@ -53,8 +61,9 @@ import numpy as np
 import torch
 
 _SEED_MASK = (1 << 63) - 1
-HOP_S = 0.020
 CHURN_CYCLE = 20  # ticks of one churn schedule: a profiled stretch's length
+# The fewest set-up ticks: each server program's warm-up and two captures.
+SETUP_TICKS = 6
 
 
 def shares(total: int, weights: Sequence[float]) -> List[int]:
@@ -69,9 +78,23 @@ def shares(total: int, weights: Sequence[float]) -> List[int]:
     return [int(n) for n in out]
 
 
-def bits_of(bitrate: int) -> int:
-    """Quantized bits a packet of `bitrate` bit/s carries (50 a second)."""
-    return int(bitrate) // 50
+def hop_samples(rate: int, hop_ms) -> int:
+    """Samples of one hop of `hop_ms` at `rate` Hz (a whole number)."""
+    samples = int(rate) * hop_ms / 1000
+    if samples != int(samples):
+        raise ValueError(f"a hop of {hop_ms} ms at {rate} Hz is "
+                         f"{samples} samples: not a whole number")
+    return int(samples)
+
+
+def bits_of(bitrate: int, hop_ms) -> int:
+    """Quantized bits a packet of `bitrate` bit/s carries, one a hop."""
+    return int(int(bitrate) * hop_ms // 1000)
+
+
+def bitrate_of(bits: int, hop_ms) -> int:
+    """The bitrate (bit/s) of packets of `bits` bits, one a hop."""
+    return int(round(int(bits) * 1000 / hop_ms))
 
 
 @dataclasses.dataclass
@@ -112,14 +135,22 @@ class Layout:
 
 
 class Traffic:
-    def __init__(self, mix: dict, seed: int, sample_rate_hz: int, device):
+    def __init__(self, mix: dict, seed: int, sample_rate_hz: int, hop_ms,
+                 device):
         self.streams = int(mix["streams"])
         self.seed = int(seed) & _SEED_MASK
+        self.hop_ms = hop_ms
+        self.hop_s = hop_ms / 1000
+        self.setup_ticks = int(mix.get("setup_ticks", SETUP_TICKS))
+        if self.setup_ticks < SETUP_TICKS:
+            raise ValueError(f"the mix's setup_ticks {self.setup_ticks} is "
+                             f"under {SETUP_TICKS}")
         self.layout: Optional[Layout] = None
         if "rates" in mix:
             self.layout = lay = Layout.of(mix)
             self.rows = lay.slots
-            row_hop = lay.row_rates() // 50
+            row_hop = np.array([hop_samples(r, hop_ms)
+                                for r in lay.row_rates()])
             self.hop = hop = int(row_hop.max())
             self.bits = None
             rates = sorted(mix["bitrates"].items(), key=lambda x: int(x[0]))
@@ -129,7 +160,7 @@ class Traffic:
             self._cycle = self._churn_cycle()
         else:
             self.rows = self.streams
-            self.hop = hop = sample_rate_hz // 50
+            self.hop = hop = hop_samples(sample_rate_hz, hop_ms)
             self.bits = int(mix["bits_per_packet"])
         b = self.rows
         loss = mix["loss"]
@@ -182,7 +213,7 @@ class Traffic:
 
     def _churn_cycle(self) -> List[List[int]]:
         """The waves of each tick's churn events over one cycle."""
-        events = int(round(self.streams * self.churn_per_s * HOP_S
+        events = int(round(self.streams * self.churn_per_s * self.hop_s
                            * CHURN_CYCLE))
         per_wave = shares(events, self.layout.wave_streams())
         # Each wave's events spread evenly over the cycle.

@@ -1,5 +1,12 @@
-"""Operations and bytes of the tick's work, counted from the TFLite graphs
-(parsed by the reference's own reader), and the chip's peaks.
+"""Lyra v2's work class (the Lyra configurations' `work`): operations and
+bytes of the tick's work, counted from the TFLite graphs (parsed by the
+reference's own reader), against the chip's peaks (portbench/peaks.py).
+
+The harness builds a configuration's work class as Work(config, streams,
+bits) (bits: one count for every row, or each row's own) and hands it to
+the per-layer metrics; `tick_mfu_pct`, which every cell reads, takes
+only its `peak` (the configuration dtype's peak FLOP/s) and
+`tick_flop()` (the model's operations of one tick).
 
 The rules are chip_smoke.py's `_work` (d33c86f), applied to graph ops
 instead of the port's launches, so that a roofline reads the same work
@@ -18,12 +25,10 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
+from portbench.peaks import PEAK_FLOPS, bound_s
 from portbench.reference import tflite_model as tfl
+from portbench.reference.codec import stages_of
 
-# Published peaks of one NVIDIA H100 SXM (dense, no sparsity), at its full
-# 700 W power limit.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES_S = 3.35e12
 MODELS = ("soundstream_encoder", "lyragan")
 CONVS = ("CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV")
 CODES = 16  # codewords per RVQ stage
@@ -116,13 +121,10 @@ class Work:
         self.elem = 2 if self.dtype == "bfloat16" else 4
         self.peak = PEAK_FLOPS[self.dtype]
         self.streams = streams
-        self.stages = np.broadcast_to(np.asarray(bits, np.int64) // 4,
+        self.stages = np.broadcast_to(stages_of(np.asarray(bits, np.int64)),
                                       (streams,))
         self.graphs = {m: _graph(os.path.join(config["model_dir"],
                                               m + ".tflite")) for m in MODELS}
-
-    def bound_s(self, flop: float, nbytes: float, peak: float) -> float:
-        return max(flop / peak, nbytes / PEAK_BYTES_S)
 
     def core_bound_s(self, core_ops: Dict[str, Iterable[int]]) -> float:
         """Σ over the given ops of each graph of max(operations / peak,
@@ -131,7 +133,7 @@ class Work:
         for model, ops in core_ops.items():
             sg = self.graphs[model]
             for i in ops:
-                total += self.bound_s(
+                total += bound_s(
                     *op_work(sg, sg.ops[i], self.streams, self.elem),
                     self.peak)
         return total
